@@ -6,12 +6,24 @@
 
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. toolchain: torch, CUDA, nvcc, device capability, triton, card and power
-  2. build the bins-head kernel from mde_tpu_torch/csrc with nvcc
-  3. the kernel against its plain PyTorch version at the serving shape
-     (B=2, 128 channels, 240x320 pixels, 256 bins), float32 and bfloat16
+  2. build the kernels of mde_tpu_torch/csrc with nvcc, one process per
+     source, all at once (bins_head.cu: head forward and backward;
+     chamfer.cu: chamfer reductions)
+  3. each kernel against its plain PyTorch version: the head forward at the
+     serving shape (B=2, 240x320 pixels) and, with the head backward, at the
+     training shape (B=16, 208x272 pixels), 128 channels, 256 bins, float32
+     and bfloat16; the chamfer reductions, loss and gradient at (16 images of
+     416x544 pixels, 256 bins)
   4. the serving path: InferenceHelper (EfficientNet-B1, 256 bins, seeded
-     random weights) answers 8 requests of 480x640 frames through the kernel
-  5. one JSON line on the kernels, then the result line.
+     random weights) answers 8 requests of 480x640 frames
+  5. the training path: create_train_state + make_train_step in the flagship
+     configuration (B1 AdaBins, 256 bins, 416x544, batch 16, bf16 autocast,
+     AdamW + OneCycle + clip 0.1, SILog + 0.1 x chamfer, both kernels) on a
+     device-resident synthetic batch: 2 warm-up and 8 timed steps, each of
+     which must launch each kernel once
+  6. one float32 step at batch 2 through the kernels against the same step
+     through the unfused head and the plain chamfer
+  7. one JSON line on the kernels, then the result line.
 
 float32 comparisons run with TF32 off for both cuDNN and cuBLAS. The script
 imports no JAX: it is the quickest proof that the port runs on the card.
@@ -23,6 +35,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -30,10 +43,22 @@ import torch
 
 REQUESTS = 8
 FRAME_HW = (480, 640)
+TRAIN_HW = (416, 544)
+TRAIN_BATCH = 16
+WARMUP_STEPS, TIMED_STEPS = 2, 8
 N_BINS = 256
 SEED = 0
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # rtol = atol
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of the tensor's largest value
 HEAD_TOL = 1e-4  # metres, fused vs plain head on the same model, rtol 1e-5
+STEP_TOL = 1e-3  # kernels vs plain step: loss rtol, gradients of the largest value
+
+# The H100's published peaks (SXM, dense): HBM bytes/s, f32 CUDA-core
+# instructions/s (67 TFLOP/s counts an FMA as two), bf16 tensor-core FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+F32_OPS = F32_FLOPS / 2
+BF16_FLOPS = 989e12
 
 
 def check(ok, message):
@@ -41,7 +66,7 @@ def check(ok, message):
         raise RuntimeError(message)
 
 
-def cuda_ms(fn, iters=50, warmup=5):
+def cuda_ms(fn, iters=20, warmup=3):
     """Mean device time of fn() in ms, from CUDA events around `iters` runs."""
     for _ in range(warmup):
         fn()
@@ -52,6 +77,12 @@ def cuda_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def max_rel(got, want):
+    """Largest error over the largest reference value."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
 
 
 def toolchain(build):
@@ -69,6 +100,7 @@ def toolchain(build):
     info = {"torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": release,
             "capability": list(torch.cuda.get_device_capability(0)),
             "triton": triton_version, "nvidia_smi": smi,
+            "cudnn": torch.backends.cudnn.version(),
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     print("toolchain: " + json.dumps(info))
@@ -76,22 +108,41 @@ def toolchain(build):
     return smi
 
 
+def build_all(build, modules):
+    """Phase 2: one nvcc per source, started together."""
+    def timed(module):
+        t0 = time.perf_counter()
+        module.library()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(modules)) as pool:
+        seconds = list(pool.map(timed, modules))
+    for module, s in zip(modules, seconds):
+        source = module._SOURCE
+        print(f"build: {source} in {s:.2f} s (all sources built in parallel)")
+        print(build.library_path(source).with_suffix(".log").read_text().strip())
+
+
+def centers_from(widths):
+    b = widths.shape[0]
+    edges = torch.cumsum(torch.cat([torch.full((b, 1), 1e-3),
+                                    (10 - 1e-3) * widths / widths.sum(1, keepdim=True)], 1), 1)
+    return edges, 0.5 * (edges[:, 1:] + edges[:, :-1])
+
+
 def head_inputs(dtype, gen, b=2, hw=(240, 320), n=N_BINS):
     x = torch.randn((b, 128, *hw), generator=gen).to("cuda", dtype)
     weight = (0.1 * torch.randn((n, 128, 1, 1), generator=gen)).cuda()
     bias = (0.1 * torch.randn((n,), generator=gen)).cuda()
-    widths = torch.rand((b, n), generator=gen)
-    edges = torch.cumsum(torch.cat([torch.full((b, 1), 1e-3),
-                                    (10 - 1e-3) * widths / widths.sum(1, keepdim=True)], 1), 1)
-    centers = (0.5 * (edges[:, 1:] + edges[:, :-1])).cuda()
-    return x, weight, bias, centers
+    _, centers = centers_from(torch.rand((b, n), generator=gen))
+    return x, weight, bias, centers.cuda()
 
 
-def check_kernel(bins_head, gen):
-    """Phase 3: kernel vs plain version at the serving shape; returns f32 stats."""
+def check_head_forward(bins_head, gen, b, hw, label):
+    """The forward kernel against its plain version; returns stats per dtype."""
     stats = {}
     for dtype in (torch.float32, torch.bfloat16):
-        args = head_inputs(dtype, gen)
+        args = head_inputs(dtype, gen, b, hw)
         want = bins_head.fused_bins_head_reference(*args)
         got = bins_head.fused_bins_head(*args)
         torch.cuda.synchronize()
@@ -101,11 +152,108 @@ def check_kernel(bins_head, gen):
         tol = KERNEL_TOL[dtype]
         ms = cuda_ms(lambda: bins_head.fused_bins_head(*args))
         plain_ms = cuda_ms(lambda: bins_head.fused_bins_head_reference(*args))
-        print(f"kernel {dtype}: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} "
-              f"(tolerance rtol=atol={tol}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        print(f"head forward {label} {dtype}: max_abs_err {abs_err:.3e} max_rel_err "
+              f"{rel_err:.3e} (tolerance rtol=atol={tol}) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms")
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-        stats[dtype] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
-    return stats[torch.float32]
+        x = args[0]
+        pixels, n = x.shape[0] * x.shape[2] * x.shape[3], args[1].shape[0]
+        flops = 2 * pixels * 128 * n
+        nbytes = x.numel() * x.element_size() + pixels * 4
+        stats[dtype] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                        **bound(flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+                                nbytes)}
+    return stats
+
+
+def bound(work, rate, nbytes):
+    """The least time for `work` at `rate` and `nbytes` at the HBM rate."""
+    ops_ms, bytes_ms = 1e3 * work / rate, 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def check_head_backward(bins_head, gen):
+    """The backward kernel against autograd through the plain version at the
+    training shape; returns stats per dtype."""
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = head_inputs(dtype, gen, TRAIN_BATCH, (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2))
+        upstream = torch.randn((TRAIN_BATCH, 1, *args[0].shape[2:]), generator=gen).cuda()
+        inputs = [t.detach().clone().requires_grad_() for t in args]
+        plain_out = bins_head.fused_bins_head_reference(*inputs)
+        want = torch.autograd.grad(plain_out, inputs, upstream, retain_graph=True)
+        got = bins_head._launch_bwd(*args, upstream)
+        got = (got[0], got[1].reshape(args[1].shape), got[2], got[3])
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, r in zip(("dx", "dW", "db", "dcenters"), got, want):
+            check(g.shape == r.shape and g.dtype == r.dtype, f"{name}: {g.shape} {g.dtype}")
+            errs[name] = ((g.float() - r.float()).abs().max().item(), max_rel(g, r))
+        ms = cuda_ms(lambda: bins_head._launch_bwd(*args, upstream), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, inputs, upstream,
+                                                       retain_graph=True), iters=5, warmup=1)
+        tol = GRAD_TOL[dtype]
+        print(f"head backward {dtype} (B={TRAIN_BATCH}, {args[0].shape[2]}x"
+              f"{args[0].shape[3]}, {N_BINS} bins): " + ", ".join(
+                  f"{k} max_abs_err {a:.3e} rel {r:.3e}" for k, (a, r) in errs.items())
+              + f" (tolerance {tol} of the largest value) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms")
+        for name, (_, rel) in errs.items():
+            check(rel <= tol, f"head backward {dtype} {name}: {rel:.3e} > {tol}")
+        x = args[0]
+        pixels = x.shape[0] * x.shape[2] * x.shape[3]
+        flops = 3 * 2 * pixels * 128 * N_BINS
+        nbytes = 2 * x.numel() * x.element_size() + pixels * 4
+        stats[dtype] = {"max_abs_err": max(a for a, _ in errs.values()), "ms": ms,
+                        "plain_ms": plain_ms,
+                        **bound(flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+                                nbytes)}
+        del plain_out, inputs, want, got
+    return stats
+
+
+def check_chamfer(chamfer, gen):
+    """The chamfer kernel against its plain version at the flagship shape."""
+    from mde_tpu_torch.ops.losses import bins_chamfer_loss
+    edges, centers = centers_from(torch.rand((TRAIN_BATCH, N_BINS), generator=gen))
+    depth = 0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)
+    edges, centers, depth = edges.cuda(), centers.cuda(), depth.cuda()
+    flat = depth.reshape(TRAIN_BATCH, -1)
+    want = chamfer.chamfer_reductions_reference(centers, flat)
+    got = chamfer.chamfer_reductions(centers, flat)
+    torch.cuda.synchronize()
+    abs_err = 0.0
+    for name, g, r in zip(("min", "nearest", "count", "depth_sum", "y_min"), got, want):
+        abs_err = max(abs_err, (g - r).abs().max().item())
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6, msg=name)
+    ms = cuda_ms(lambda: chamfer.chamfer_reductions(centers, flat), iters=10)
+    plain_ms = cuda_ms(lambda: chamfer.chamfer_reductions_reference(centers, flat),
+                       iters=3, warmup=1)
+
+    # loss and gradient: the kernel's entry against the plain chunked loss
+    # (value) and against the same entry on the CPU, where it runs the plain
+    # reductions with the same tie rule (gradient)
+    e = edges.clone().requires_grad_()
+    value = chamfer.chamfer_1d(e, depth)
+    value.backward()
+    plain_value = bins_chamfer_loss(edges, depth)
+    e_cpu = edges.cpu().requires_grad_()
+    cpu_value = chamfer.chamfer_1d(e_cpu, depth.cpu())
+    cpu_value.backward()
+    grad_rel = max_rel(e.grad.cpu(), e_cpu.grad)
+    print(f"chamfer ({TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]} pixels, {N_BINS} bins): "
+          f"reductions max_abs_err {abs_err:.3e} (rtol 1e-5, atol 1e-6); loss kernel "
+          f"{value.item():.7e} plain {plain_value.item():.7e} (rtol 1e-5); gradient to "
+          f"the edges vs the CPU plain reductions {grad_rel:.3e} of the largest value "
+          f"(tolerance 1e-4); kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    torch.testing.assert_close(value, plain_value, rtol=1e-5, atol=1e-7)
+    check(grad_rel <= 1e-4, f"chamfer gradient {grad_rel:.3e} > 1e-4")
+    valid = int((flat >= 1e-3).sum())
+    ops = 5 * N_BINS * flat.numel() + 5 * N_BINS * valid
+    nbytes = 2 * flat.numel() * 4 + centers.numel() * 4
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            **bound(ops, F32_OPS, nbytes)}
 
 
 def seeded_state_dict(model, gen):
@@ -185,6 +333,7 @@ def serve(bins_head, gen, profile_dir):
 
     if profile_dir is not None:
         profile(helper, frames, Path(profile_dir))
+    del helper
     return launches
 
 
@@ -199,11 +348,25 @@ def request_ms(helper, frames):
     return out
 
 
+def device_events(prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_busy_us(prof):
+    """Union of the device's kernel intervals in a profile, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events(prof))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy_us, len(spans)
+
+
 def profile(helper, frames, out_dir):
     """For cuDNN TF32 off and on, and for cudnn.benchmark: the median request
     latency, device time by kernel and by op input shape over 2 requests, and
     the device's busy share (the union of kernel intervals over the wall)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     out_dir.mkdir(parents=True, exist_ok=True)
     for tf32, bench in ((False, False), (True, False), (False, True), (True, True)):
@@ -216,12 +379,7 @@ def profile(helper, frames, out_dir):
             for frame in frames[:2]:
                 helper.predict(frame)
             wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        busy_us, end = 0.0, float("-inf")
-        for a, b in spans:
-            busy_us += max(0.0, b - max(a, end))
-            end = max(end, b)
+        busy_us, n_events = device_busy_us(prof)
         by_kernel = prof.key_averages().table(sort_by="self_device_time_total",
                                               row_limit=25, max_name_column_width=90)
         by_shape = prof.key_averages(group_by_input_shape=True).table(
@@ -230,42 +388,213 @@ def profile(helper, frames, out_dir):
         (out_dir / f"chip_smoke_profile_{tag}.txt").write_text(by_kernel + "\n" + by_shape)
         print(f"profile {tag}: median request {median:.3f} ms; over 2 requests wall "
               f"{wall_us:.0f} us, device busy {busy_us:.0f} us "
-              f"({100 * busy_us / wall_us:.1f}%), {len(spans)} device events")
+              f"({100 * busy_us / wall_us:.1f}%), {n_events} device events")
         print(by_kernel)
     torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = False, False
+
+
+def flagship_args(**kw):
+    """The flagship training configuration of bench.py and __graft_entry__.py."""
+    import types
+    base = dict(n_bins=N_BINS, min_depth=1e-3, max_depth=10.0, norm="linear",
+                encoder_name="efficientnet-b1", use_semantics=None,
+                use_instance_segmentation=None, image="rgb", w_chamfer=0.1, chamfer=True,
+                epochs=25, lr=0.000357, wd=0.1, div_factor=25.0, final_div_factor=100.0,
+                same_lr=False, seed=SEED, use_fused_head=True, use_pallas_chamfer=True,
+                compute_dtype="bfloat16", accum_steps=1)
+    base.update(kw)
+    return types.SimpleNamespace(**base)
+
+
+def reset_counts():
+    from mde_tpu_torch.kernels import bins_head, chamfer
+    bins_head.LAUNCHES = bins_head.BWD_LAUNCHES = chamfer.LAUNCHES = 0
+
+
+def read_counts():
+    from mde_tpu_torch.kernels import bins_head, chamfer
+    return {"bins_head_fwd": bins_head.LAUNCHES, "bins_head_bwd": bins_head.BWD_LAUNCHES,
+            "chamfer": chamfer.LAUNCHES}
+
+
+def train(state_dict, gen, profile_dir):
+    """Phase 5: the flagship training step; returns the launches per kernel
+    over the timed steps."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state, make_train_step
+
+    args = flagship_args()
+    model = build_model(args).cuda()
+    model.load_state_dict(state_dict, strict=True)
+    state = create_train_state(model, args, steps_per_epoch=2693)
+    step = make_train_step(args)
+    image = torch.randn((TRAIN_BATCH, 3, *TRAIN_HW), generator=gen).cuda()
+    depth = (0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)).cuda()
+    batch = {"image": image, "depth": depth}
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, metrics, per_step = [], [], []
+    reset_counts()
+    for _ in range(TIMED_STEPS):
+        counts = read_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+        per_step.append({k: v - counts[k] for k, v in read_counts().items()})
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    median = statistics.median(step_ms)
+    print(f"train: {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up, batch {TRAIN_BATCH} of "
+          f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, bf16 autocast: median step {median:.3f} ms "
+          f"(all: {', '.join(f'{v:.3f}' for v in step_ms)}), "
+          f"{1e3 * TRAIN_BATCH / median:.2f} images/s, max_memory_allocated {peak} bytes")
+    for i, m in enumerate(metrics):
+        print(f"train: step {WARMUP_STEPS + i}: loss {m['loss'].item():.6f} silog "
+              f"{m['silog'].item():.6f} chamfer {m['chamfer'].item():.6f} launches "
+              f"{per_step[i]}")
+        check(all(np.isfinite(v.item()) for v in m.values()), f"step {i}: metric not finite")
+        check(per_step[i] == {"bins_head_fwd": 1, "bins_head_bwd": 1, "chamfer": 1},
+              f"step {i}: launches {per_step[i]}, expected one of each kernel")
+    changed = sum(not torch.equal(p.detach(), before[k]) for k, p in model.named_parameters())
+    print(f"train: {changed} of {len(before)} parameter tensors changed; step count "
+          f"{state.step}")
+    check(changed == len(before), "some parameters did not change")
+
+    share = train_kernel_share(step, state, batch, profile_dir)
+    print(f"train: profile over 2 steps: {share}")
+    del state, model, before
+    return launches
+
+
+def train_kernel_share(step, state, batch, profile_dir):
+    """Device time of the port's kernels against all device time, over 2
+    profiled steps, and the device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, n_events = device_busy_us(prof)
+    events = device_events(prof)
+    total = sum(e.time_range.elapsed_us() for e in events)
+    ours = {name: sum(e.time_range.elapsed_us() for e in events if name in e.name)
+            for name in ("bins_head_fwd_kernel", "bins_head_bwd_pixel_kernel",
+                         "bins_head_bwd_weight_kernel", "chamfer_kernel")}
+    if profile_dir is not None:
+        out = Path(profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "chip_smoke_profile_train.txt").write_text(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=40, max_name_column_width=90))
+    if total == 0:
+        return "no device time in the profile: kernel share not measured"
+    return (f"device time (sum of device events) {total / 2e3:.3f} ms per step; "
+            + ", ".join(f"{k} {v / 2e3:.3f} ms ({100 * v / total:.1f}%)"
+                        for k, v in ours.items())
+            + f"; the port's kernels {100 * sum(ours.values()) / total:.1f}%; wall "
+            f"{wall_us / 2e3:.3f} ms per step (profiled), device busy "
+            f"{100 * busy_us / wall_us:.1f}%, {n_events} device events")
+
+
+def step_against_plain(state_dict, gen):
+    """Phase 6: one float32 step at batch 2 through the kernels and through
+    the unfused head and the plain chamfer, on the same weights and batch."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import make_loss_fn
+
+    image = torch.randn((2, 3, *TRAIN_HW), generator=gen).cuda()
+    depth = (0.05 + 9.9 * torch.rand((2, 1, *TRAIN_HW), generator=gen)).cuda()
+    results = {}
+    for kernels in (True, False):
+        args = flagship_args(compute_dtype="float32", use_fused_head=kernels,
+                             use_pallas_chamfer=kernels)
+        model = build_model(args).cuda().train()
+        model.load_state_dict(state_dict, strict=True)
+        loss_fn = make_loss_fn(args)
+        generator = torch.Generator(device="cuda").manual_seed(SEED)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, l_dense, l_chamfer = loss_fn(model, {"image": image, "depth": depth}, generator)
+        loss.backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                 if k.startswith(("conv_out.", "adaptive_bins_layer.regressor."))}
+        results[kernels] = (loss.item(), l_dense.item(), l_chamfer.item(), grads)
+        print(f"step check, {'kernels' if kernels else 'plain'}: loss {loss.item():.7f} "
+              f"silog {l_dense.item():.7f} chamfer {l_chamfer.item():.7e}, launches {counts}, "
+              f"{seconds:.2f} s, max_memory_allocated {torch.cuda.max_memory_allocated()} "
+              f"bytes")
+        want = {"bins_head_fwd": 1, "bins_head_bwd": 1, "chamfer": 1} if kernels else \
+            {"bins_head_fwd": 0, "bins_head_bwd": 0, "chamfer": 0}
+        check(counts == want, f"step check launches {counts}, expected {want}")
+        del model, loss
+    kern, plain = results[True], results[False]
+    for name, a, b in zip(("loss", "silog", "chamfer"), kern[:3], plain[:3]):
+        check(abs(a - b) <= STEP_TOL * abs(b), f"step check {name}: {a} vs {b}")
+    worst = max((max_rel(kern[3][k], plain[3][k]), k) for k in plain[3])
+    print(f"step check: loss, silog, chamfer within rtol {STEP_TOL}; largest gradient error "
+          f"{worst[0]:.3e} of the largest value ({worst[1]}; tolerance {STEP_TOL})")
+    check(worst[0] <= STEP_TOL, f"step check gradient {worst}")
 
 
 def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
-                        help="also profile requests under four cuDNN settings and "
-                             "write the tables to DIR")
+                        help="also profile requests under four cuDNN settings and the "
+                             "training step, and write the tables to DIR")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
-    from mde_tpu_torch.kernels import bins_head, build
+    from mde_tpu_torch.kernels import bins_head, build, chamfer
+    from mde_tpu_torch.models import UnetAdaptiveBins
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
 
     toolchain(build)
-    t0 = time.perf_counter()
-    bins_head.library()
-    print(f"build: bins_head.cu in {time.perf_counter() - t0:.2f} s")
-    print(build.library_path("bins_head.cu").with_suffix(".log").read_text().strip())
+    build_all(build, [bins_head, chamfer])
 
-    kernel = check_kernel(bins_head, gen)
-    launches = serve(bins_head, gen, args.profile)
+    check_head_forward(bins_head, gen, 2, (FRAME_HW[0] // 2, FRAME_HW[1] // 2), "serving")
+    fwd = check_head_forward(bins_head, gen, TRAIN_BATCH, (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2),
+                             "training")[torch.bfloat16]
+    bwd = check_head_backward(bins_head, gen)[torch.bfloat16]
+    cham = check_chamfer(chamfer, gen)
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "bins_head_fwd", "route": "cuda",
-        "source": "mde_tpu_torch/csrc/bins_head.cu",
-        "replaces": "mde_tpu/kernels/bins_head.py:76",
-        "launches": launches, "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"]}]}))
+    serve(bins_head, gen, args.profile)
+    torch.cuda.empty_cache()
+
+    shell = UnetAdaptiveBins(n_bins=N_BINS, min_val=1e-3, max_val=10.0,
+                             encoder_name="efficientnet-b1")
+    state_dict = seeded_state_dict(shell, gen)
+    launches = train(state_dict, gen, args.profile)
+    torch.cuda.empty_cache()
+    step_against_plain(state_dict, gen)
+
+    rows = [("bins_head_fwd", "mde_tpu_torch/csrc/bins_head.cu",
+             "mde_tpu/kernels/bins_head.py:76", fwd),
+            ("bins_head_bwd", "mde_tpu_torch/csrc/bins_head.cu",
+             "mde_tpu/kernels/bins_head.py:84", bwd),
+            ("chamfer", "mde_tpu_torch/csrc/chamfer.cu", "mde_tpu/kernels/chamfer.py:48", cham)]
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+         "library_ms": None}
+        for name, source, replaces, s in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

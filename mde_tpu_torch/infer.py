@@ -6,7 +6,8 @@ horizontal-flip TTA averaging, bin-center extraction and 16-bit png saving
 ([image, flipped image]); the model takes the fused bins head, so a CUDA
 device runs the bins-head kernel once per request.
 
-Run `python -m mde_tpu_torch.infer [image] [checkpoint]` for the demo.
+Run `python -m mde_tpu_torch.infer [image] [checkpoint] [--device cpu]` for
+the demo; it runs on the card unless `--device` says otherwise.
 """
 
 import glob
@@ -67,7 +68,8 @@ class InferenceHelper:
         centers, pred = self.predict(normalize_image(img)[None])
         if visualized:
             from PIL import Image
-            from mde_tpu.utils.misc import colorize
+
+            from .utils.misc import colorize
             viz = colorize(pred[0, ..., 0], vmin=None, vmax=None, cmap="magma")
             return centers, pred, Image.fromarray(viz)
         return centers, pred
@@ -84,17 +86,23 @@ class InferenceHelper:
 
 
 def main(argv):
-    """Single-image demo, as the root `infer.py` (reference infer.py:152-163)."""
+    """Single-image demo, as the root `infer.py` (reference infer.py:152-163).
+    Runs on the device that `--device` names (default cuda), never elsewhere."""
+    import argparse
     from time import time
 
     from PIL import Image
 
-    image_path = argv[0] if len(argv) > 0 else "test_imgs/classroom__rgb_00283.jpg"
-    ckpt = argv[1] if len(argv) > 1 else "./pretrained/AdaBins_nyu.pt"
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    img = Image.open(image_path)
+    parser = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    parser.add_argument("image", nargs="?", default="test_imgs/classroom__rgb_00283.jpg")
+    parser.add_argument("checkpoint", nargs="?", default="./pretrained/AdaBins_nyu.pt")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default cuda; cpu must be asked for)")
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    img = Image.open(args.image)
     start = time()
-    helper = InferenceHelper(dataset="nyu", checkpoint_path=ckpt, device=device)
+    helper = InferenceHelper(dataset="nyu", checkpoint_path=args.checkpoint, device=device)
     _, pred = helper.predict_pil(img)
     print(f"took :{time() - start}s on {device}")
 

@@ -4,13 +4,15 @@
 The reference's conv2 quirk is kept: a 1x1 conv declared with padding=1, which
 grows the bottleneck map by a 2-pixel border that the first upsample resizes
 away. Skips are features[8], [6], [5], [4] and the bottleneck is features[11],
-the conv_head output before its BN.
+the conv_head output before its BN. In training mode the BatchNorms update
+their running variance as flax does (models/norm.py), with flax momentum 0.9.
 """
 
 import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_bilinear_align_corners
+from .norm import BatchNorm2d
 
 _BN_EPS = 1e-5  # torch nn.BatchNorm2d default
 
@@ -22,10 +24,10 @@ class UpSampleBN(nn.Module):
         super().__init__()
         self._net = nn.Sequential(
             nn.Conv2d(skip_input, output_features, 3, 1, 1),
-            nn.BatchNorm2d(output_features, eps=_BN_EPS),
+            BatchNorm2d(output_features, eps=_BN_EPS),
             nn.LeakyReLU(0.01),
             nn.Conv2d(output_features, output_features, 3, 1, 1),
-            nn.BatchNorm2d(output_features, eps=_BN_EPS),
+            BatchNorm2d(output_features, eps=_BN_EPS),
             nn.LeakyReLU(0.01),
         )
 

@@ -4,7 +4,10 @@
 Module and parameter names are gen-efficientnet's (conv_stem, bn1,
 blocks.{stage}.{rep}.*, conv_head, bn2), so the reference's state_dicts load
 as they are. The W-packed stage-0 layout of the JAX package is a TPU lane
-trick and is not ported; stochastic depth waits for the training slice.
+trick and is not ported. In training mode the BatchNorms update their running
+variance as flax does (models/norm.py). Stochastic depth is 0, the JAX
+default (`mde_tpu/models/efficientnet.py:367-370`); a rate above 0 is not
+ported and raises.
 
 The encoder returns the feature-list contract the decoder relies on:
     features[0]  input
@@ -19,6 +22,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .norm import BatchNorm2d
 
 # B0 stage table: (expand_ratio, kernel, stride, base_channels, base_repeats)
 _B0_STAGES = (
@@ -78,7 +83,7 @@ class Conv2dSame(nn.Conv2d):
 
 
 def _bn(chs):
-    return nn.BatchNorm2d(chs, eps=_BN_EPS_TF, momentum=_BN_MOMENTUM)
+    return BatchNorm2d(chs, eps=_BN_EPS_TF, momentum=_BN_MOMENTUM)
 
 
 class SqueezeExcite(nn.Module):
@@ -143,8 +148,13 @@ class InvertedResidualBlock(nn.Module):
 class EfficientNetEncoder(nn.Module):
     """EfficientNet trunk returning the full intermediate-feature list."""
 
-    def __init__(self, arch: str = "efficientnet-b1", in_chs: int = 3):
+    def __init__(self, arch: str = "efficientnet-b1", in_chs: int = 3,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        if drop_path_rate > 0:
+            raise NotImplementedError(
+                "stochastic depth is not ported yet (ROADMAP queue 1, item 2); "
+                "the JAX default and the reference's is 0")
         width, depth = EFFICIENTNET_CONFIGS[arch]
         stem_chs = round_channels(32, width)
         head_chs = round_channels(1280, width)

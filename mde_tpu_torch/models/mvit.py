@@ -3,7 +3,8 @@
 
 A 16x16 stride-16 patch conv (VALID: the remainder is dropped) and a learned
 500-entry positional table feed 4 post-norm transformer layers (d_model 128,
-4 heads, FFN 1024, ReLU, dropout 0.1). Attention is written out as matmuls
+4 heads, FFN 1024, ReLU, dropout 0.1 at the four points of
+`mde_tpu/models/mvit.py:46, 66, 71, 73`). Attention is written out as matmuls
 and a softmax; the parameter names are those of torch's
 nn.TransformerEncoderLayer (packed q|k|v `in_proj_weight`), so the
 reference's state_dicts load as they are. LayerNorm eps is flax's 1e-6, as in
@@ -12,6 +13,11 @@ the JAX package (torch's default, and the reference's, is 1e-5).
 Token 0 regresses normalized bin widths through a 128->256->256->n_bins MLP;
 tokens 1..128 are queries dotted against a 3x3-conv projection of the decoder
 map, giving 128 range-attention maps. That slice needs at least 129 tokens.
+
+In training mode the dropout masks are drawn from the `generator` passed to
+`forward` (the train step seeds one per step, as the JAX step folds its rng
+per step); without one, from torch's global generator. The two frameworks'
+masks differ for the same seed.
 """
 
 import math
@@ -21,6 +27,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default, as in mde_tpu/models/mvit.py:67,74
+
+
+def dropout(x, rate: float, training: bool, generator=None):
+    """flax nn.Dropout: keep each value with probability 1 - rate and scale
+    the kept ones by 1 / (1 - rate); the mask comes from `generator`."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -36,7 +51,7 @@ class MultiheadSelfAttention(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         # x: (N, S, E)
         n, s, e = x.shape
         h = self.num_heads
@@ -45,7 +60,7 @@ class MultiheadSelfAttention(nn.Module):
         q, k, v = (t.reshape(n, s, h, hd).transpose(1, 2) for t in (q, k, v))
         logits = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(hd)
         weights = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        weights = F.dropout(weights, self.dropout, self.training)
+        weights = dropout(weights, self.dropout, self.training, generator)
         out = torch.matmul(weights, v).transpose(1, 2).reshape(n, s, e)
         return self.out_proj(out)
 
@@ -63,9 +78,9 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim, eps=_LN_EPS)
         self.dropout = dropout
 
-    def forward(self, x):
-        drop = lambda t: F.dropout(t, self.dropout, self.training)
-        x = self.norm1(x + drop(self.self_attn(x)))
+    def forward(self, x, generator=None):
+        drop = lambda t: dropout(t, self.dropout, self.training, generator)
+        x = self.norm1(x + drop(self.self_attn(x, generator)))
         y = self.linear2(drop(F.relu(self.linear1(x))))
         return self.norm2(x + drop(y))
 
@@ -93,11 +108,11 @@ class PatchTransformerEncoder(nn.Module):
             TransformerEncoderLayer(embedding_dim, num_heads, 1024)
             for _ in range(num_layers))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         y = self.embedding_convPxP(x).flatten(2).transpose(1, 2)   # (N, S, E)
         y = y + self.positional_encodings[:y.shape[1]].to(y.dtype)
         for layer in self.transformer_encoder.layers:
-            y = layer(y)
+            y = layer(y, generator)
         return y
 
 
@@ -126,8 +141,8 @@ class MViT(nn.Module):
             nn.Linear(256, 256), nn.LeakyReLU(0.01),
             nn.Linear(256, dim_out))
 
-    def forward(self, x):
-        tgt = self.patch_transformer(x)
+    def forward(self, x, generator=None):
+        tgt = self.patch_transformer(x, generator)
         proj = self.conv3x3(x)
         regression_head = tgt[:, 0]
         queries = tgt[:, 1:self.n_query_channels + 1]

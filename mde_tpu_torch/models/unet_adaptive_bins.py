@@ -8,7 +8,10 @@ strict=True. `conv_out.0` is always a Conv2d(128, n_bins, 1). With
 `fused_head` set and `fused_head_supported(h, w, n_bins)` true, its weight and
 bias go to the fused bins-head wrapper, which launches the CUDA kernel for
 CUDA tensors and runs the plain version for CPU tensors; otherwise the head
-runs as the reference writes it (conv, softmax over bins, centers sum).
+runs as the reference writes it (conv, softmax over bins, centers sum). The
+fused head is differentiable (its backward is a CUDA kernel too), so training
+takes the same switch. `forward(x, generator)` draws the mViT dropout masks in
+training mode from `generator`.
 
 Outputs: (bin_edges (N, n_bins + 1), pred (N, 1, H/2, W/2)).
 """
@@ -68,7 +71,7 @@ class UnetAdaptiveBins(nn.Module):
         self.conv_out = nn.Sequential(nn.Conv2d(128, n_bins, 1, 1, 0),
                                       nn.Softmax(dim=1))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         features = self.encoder(x)
         unet_out = self.decoder(features)
         h, w = unet_out.shape[-2:]
@@ -77,7 +80,7 @@ class UnetAdaptiveBins(nn.Module):
                 f"the mViT head needs at least {_MIN_TOKENS} tokens, "
                 f"(H/32)*(W/32) for an HxW input; a {h}x{w} decoder map gives "
                 f"{(h // _PATCH) * (w // _PATCH)}")
-        bin_widths_normed, range_attention_maps = self.adaptive_bins_layer(unet_out)
+        bin_widths_normed, range_attention_maps = self.adaptive_bins_layer(unet_out, generator)
         bin_edges = bin_edges_from_widths(bin_widths_normed, self.min_val, self.max_val)
         centers = bin_centers(bin_edges)
 

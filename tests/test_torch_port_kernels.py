@@ -1,15 +1,20 @@
 """Port parity, bins-head kernel: the plain version of
 mde_tpu_torch.kernels.bins_head against the Pallas kernel
 mde_tpu.kernels.bins_head.fused_bins_head run in interpret mode, as
-tests/test_kernels.py runs it. Tolerances are those of tests/test_kernels.py:
-rtol/atol 1e-5 in float32, 2e-2 in bfloat16 (the rounding points are the
-same, the summation orders are not).
+tests/test_kernels.py runs it. Forward tolerances are those of
+tests/test_kernels.py: rtol/atol 1e-5 in float32, 2e-2 in bfloat16 (the
+rounding points are the same, the summation orders are not). The gradients
+(autograd through the plain version against `jax.vjp` through the Pallas
+backward kernel) are held at rtol 1e-4 in float32, as
+tests/test_kernels.py:111-127 holds them, and 2e-2 in bfloat16, each with an
+atol of that fraction of the tensor's largest value (entries near zero).
 
 On the CPU the wrapper runs the plain version and launches nothing; the CUDA
 kernel itself is compared with the plain version on the card by
 tests/test_torch_port_cuda.py and chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +65,31 @@ def test_plain_head_matches_pallas_kernel(dtype, n):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [128, 256])
+def test_plain_head_gradients_match_pallas_backward(dtype, n):
+    """dfeatures, dkernel, dbias and dcenters for a random depth gradient."""
+    feats, kernel, bias, centers = _head_inputs(seed=n + 1, n=n)
+    upstream = np.random.default_rng(n).standard_normal((2, 8, 16, 1)).astype(np.float32)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    fn = lambda f, k, b, c: jax_bins_head.fused_bins_head(f, k, b, c, interpret=True)
+    _, vjp = jax.vjp(fn, jnp.asarray(feats, jdtype), jnp.asarray(kernel), jnp.asarray(bias),
+                     jnp.asarray(centers))
+    want = [np.asarray(g, np.float32) for g in vjp(jnp.asarray(upstream))]
+
+    inputs = [t.requires_grad_() for t in _port_args(feats, kernel, bias, centers, dtype)]
+    out = bins_head.fused_bins_head(*inputs)
+    out.backward(torch.from_numpy(upstream.transpose(0, 3, 1, 2).copy()))
+    assert inputs[0].grad.dtype == dtype
+    got = [inputs[0].grad.float().numpy().transpose(0, 2, 3, 1),
+           inputs[1].grad.numpy()[:, :, 0, 0].T[None, None],
+           inputs[2].grad.numpy(), inputs[3].grad.numpy()]
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    for name, g, r in zip(("dfeatures", "dkernel", "dbias", "dcenters"), got, want):
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g, r, rtol=tol, atol=tol * np.abs(r).max(), err_msg=name)
+
+
 @pytest.mark.parametrize("h,w,n", [(8, 16, 128), (240, 320, 256), (160, 208, 256),
                                    (7, 9, 128), (8, 16, 100), (33, 49, 256)])
 def test_supported_predicate_matches_jax(h, w, n):
@@ -75,6 +105,7 @@ def _bad_inputs():
         "centers_batch": ((x, w, b, c[:1]), ValueError),
         "feature_dtype": ((x.half(), w, b, c), TypeError),
         "weight_dtype": ((x, w.double(), b, c), TypeError),
+        "bias_dtype": ((x, w, b.half(), c), TypeError),
         "device": ((x.to("meta"), w.to("meta"), b.to("meta"), c.to("meta")), ValueError),
     }
 

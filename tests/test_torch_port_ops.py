@@ -1,14 +1,17 @@
 """Port parity, ops: mde_tpu_torch.ops against mde_tpu.ops (CPU, float32),
-and the port's import boundary (no jax, no flax, no PIL).
+and the port's import boundary (no jax, no flax, no mde_tpu; no PIL at
+import time).
 
 Tolerance rtol 1e-6, with atol 1e-6 for values near zero: the JAX resize is
 two f32 matmuls over taps computed in f64, torch's interpolates with taps
 computed in f32, so single roundings differ.
 """
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +25,12 @@ from mde_tpu_torch.ops import bins, resize
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SLICE_MODULES = ["mde_tpu_torch", "mde_tpu_torch.ops", "mde_tpu_torch.kernels",
-                 "mde_tpu_torch.kernels.build", "mde_tpu_torch.models",
-                 "mde_tpu_torch.checkpoint", "mde_tpu_torch.data",
-                 "mde_tpu_torch.infer"]
+SLICE_MODULES = ["mde_tpu_torch", "mde_tpu_torch.ops", "mde_tpu_torch.ops.losses",
+                 "mde_tpu_torch.kernels", "mde_tpu_torch.kernels.build",
+                 "mde_tpu_torch.kernels.chamfer", "mde_tpu_torch.models",
+                 "mde_tpu_torch.checkpoint", "mde_tpu_torch.data", "mde_tpu_torch.infer",
+                 "mde_tpu_torch.train", "mde_tpu_torch.utils"]
+FORBIDDEN = ("jax", "flax", "mde_tpu")
 
 
 def test_port_imports_no_jax_flax_or_pil():
@@ -34,6 +39,27 @@ def test_port_imports_no_jax_flax_or_pil():
             "bad = [m for m in ('jax', 'flax', 'PIL') if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
+
+
+def _imported_roots(path):
+    """Top-level package of every import in the file, lazy ones included."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+PORT_SOURCES = sorted(Path(REPO, "mde_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_source_imports_no_jax_flax_or_mde_tpu(path):
+    """Static: walks the AST, so an import inside a function counts too."""
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
 def _widths(seed, n=2, n_bins=256):
