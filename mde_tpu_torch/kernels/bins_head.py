@@ -31,7 +31,8 @@ _SOURCE = "bins_head.cu"
 _LIB = None
 
 # Kernel launches since the last reset, forward and backward; only the CUDA
-# path adds to them.
+# path adds to them. One backward call launches two kernels (the pixel and
+# the weight kernel) and adds 2.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -200,5 +201,5 @@ def _launch_bwd(x, weight, bias, centers, grad):
     if err != 0:
         raise RuntimeError("bins-head backward kernel launch failed: "
                            + lib.mde_cuda_error_string(err).decode())
-    BWD_LAUNCHES += 1
+    BWD_LAUNCHES += 2
     return dx, part_dw.sum(dim=(0, 1)), part_dbc[0].sum(dim=(0, 1)), part_dbc[1].sum(dim=1)

@@ -5,9 +5,9 @@ Module and parameter names are gen-efficientnet's (conv_stem, bn1,
 blocks.{stage}.{rep}.*, conv_head, bn2), so the reference's state_dicts load
 as they are. The W-packed stage-0 layout of the JAX package is a TPU lane
 trick and is not ported. In training mode the BatchNorms update their running
-variance as flax does (models/norm.py). Stochastic depth is 0, the JAX
-default (`mde_tpu/models/efficientnet.py:367-370`); a rate above 0 is not
-ported and raises.
+variance as flax does (models/norm.py). There is no stochastic depth: its
+rate is 0, the JAX default (`mde_tpu/models/efficientnet.py:367-370`), and a
+rate above 0 is not ported (ROADMAP queue 1, item 2).
 
 The encoder returns the feature-list contract the decoder relies on:
     features[0]  input
@@ -148,13 +148,8 @@ class InvertedResidualBlock(nn.Module):
 class EfficientNetEncoder(nn.Module):
     """EfficientNet trunk returning the full intermediate-feature list."""
 
-    def __init__(self, arch: str = "efficientnet-b1", in_chs: int = 3,
-                 drop_path_rate: float = 0.0):
+    def __init__(self, arch: str = "efficientnet-b1", in_chs: int = 3):
         super().__init__()
-        if drop_path_rate > 0:
-            raise NotImplementedError(
-                "stochastic depth is not ported yet (ROADMAP queue 1, item 2); "
-                "the JAX default and the reference's is 0")
         width, depth = EFFICIENTNET_CONFIGS[arch]
         stem_chs = round_channels(32, width)
         head_chs = round_channels(1280, width)

@@ -20,7 +20,7 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     out_hw = (int(out_hw[0]), int(out_hw[1]))
     if tuple(x.shape[-2:]) == out_hw:
         return x
-    work = torch.float64 if x.dtype == torch.float32 else torch.float32
+    work = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else torch.float64
     y = F.interpolate(x.to(work), size=out_hw, mode="bilinear", align_corners=True)
     return y.to(x.dtype)
 

@@ -37,10 +37,10 @@ def make_loss_fn(args):
     {"image": (N, 3, H, W), "depth": (N, 1, H, W)}. The caller takes the
     gradients."""
     w_chamfer = float(args.w_chamfer)
-    use_chamfer = bool(getattr(args, "chamfer", w_chamfer > 0)) and w_chamfer != 0.0
+    use_chamfer = bool(args.chamfer) and w_chamfer != 0.0
     min_depth = float(args.min_depth)
-    chamfer_fn = chamfer_1d if getattr(args, "use_pallas_chamfer", True) else bins_chamfer_loss
-    bf16 = getattr(args, "compute_dtype", "bfloat16") == "bfloat16"
+    chamfer_fn = chamfer_1d if args.use_pallas_chamfer else bins_chamfer_loss
+    bf16 = args.compute_dtype == "bfloat16"
 
     def loss_fn(model, batch, generator=None):
         image, depth = batch["image"], batch["depth"]
@@ -66,8 +66,8 @@ def make_train_step(args):
     `state.model` in place. Metrics are 0-d tensors on the batch's device
     (`loss`, `silog`, `chamfer`); reading them waits for the step."""
     loss_fn = make_loss_fn(args)
-    accum = max(1, int(getattr(args, "accum_steps", 1) or 1))
-    seed = int(getattr(args, "seed", 0))
+    accum = max(1, int(args.accum_steps))
+    seed = int(args.seed)
 
     def train_step(state: TrainState, batch):
         model = state.model.train()

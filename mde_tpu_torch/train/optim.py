@@ -71,9 +71,7 @@ class OneCycleAdamW:
         self.lr = onecycle_lr_schedule(args.lr, total_steps, div_factor=args.div_factor,
                                        final_div_factor=args.final_div_factor)
         self.beta1 = onecycle_momentum_schedule(total_steps)
-        factor = float(getattr(args, "encoder_lr_factor", 1.0) or 1.0)
-        if getattr(args, "same_lr", False):
-            factor = 1.0
+        factor = 1.0 if args.same_lr else float(args.encoder_lr_factor or 1.0)
         encoder, rest = [], []
         for name, p in model.named_parameters():
             (encoder if name.startswith("encoder.") else rest).append(p)
@@ -102,8 +100,3 @@ class OneCycleAdamW:
 
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
-
-
-def build_optimizer(model: torch.nn.Module, args, steps_per_epoch: int) -> OneCycleAdamW:
-    """The reference recipe's optimizer for `model`'s parameters."""
-    return OneCycleAdamW(model, args, steps_per_epoch)

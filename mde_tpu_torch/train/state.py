@@ -5,7 +5,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .optim import OneCycleAdamW, build_optimizer
+from .optim import OneCycleAdamW
 
 
 @dataclass
@@ -18,4 +18,4 @@ class TrainState:
 def create_train_state(model: torch.nn.Module, args, steps_per_epoch: int) -> TrainState:
     """Wrap a built model (weights already loaded or initialised) with the
     reference optimizer recipe (train/optim.py)."""
-    return TrainState(model=model, optimizer=build_optimizer(model, args, steps_per_epoch))
+    return TrainState(model=model, optimizer=OneCycleAdamW(model, args, steps_per_epoch))
