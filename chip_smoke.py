@@ -7,23 +7,28 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. toolchain: torch, CUDA, nvcc, device capability, triton, card and power
   2. build the kernels of mde_tpu_torch/csrc with nvcc, one process per
-     source, all at once (bins_head.cu: head forward and backward;
-     chamfer.cu: chamfer reductions)
+     source, all at once (bins_head.cu: the float32 head forward and
+     backward on the CUDA cores; bins_head_tc.cu: the bfloat16 head forward
+     and backward on the tensor cores; chamfer.cu: chamfer reductions)
   3. each kernel against its plain PyTorch version: the head forward at the
      serving shape (B=2, 240x320 pixels) and, with the head backward, at the
      training shape (B=16, 208x272 pixels), 128 channels, 256 bins, float32
-     and bfloat16; the chamfer reductions, loss and gradient at (16 images of
-     416x544 pixels, 256 bins)
+     (CUDA-core kernels) and bfloat16 (tensor-core kernels); the chamfer
+     reductions, loss and gradient at (16 images of 416x544 pixels, 256
+     bins); and, as a yardstick of the card's bf16 tensor-core rate, one
+     cuBLAS product of the head's size, which the port never calls
   4. the serving path: InferenceHelper (EfficientNet-B1, 256 bins, seeded
-     random weights) answers 8 requests of 480x640 frames
+     random weights) answers 8 requests of 480x640 frames, each through the
+     float32 head forward kernel
   5. the training path: create_train_state + make_train_step in the flagship
      configuration (B1 AdaBins, 256 bins, 416x544, batch 16, bf16 autocast,
      AdamW + OneCycle + clip 0.1, SILog + 0.1 x chamfer, both kernels) on a
      device-resident synthetic batch: 2 warm-up and 8 timed steps, each of
-     which must launch the head forward and the chamfer kernel once and the
-     two head backward kernels once each
-  6. one float32 step at batch 2 through the kernels against the same step
-     through the unfused head and the plain chamfer
+     which must launch the tensor-core head forward and the chamfer kernel
+     once and the two tensor-core head backward kernels once each
+  6. one step at batch 2 through the kernels against the same step through
+     the unfused head and the plain chamfer, in float32 (the CUDA-core head
+     kernels) and under bf16 autocast (the tensor-core ones)
   7. one JSON line on the kernels, then the result line.
 
 float32 comparisons run with TF32 off for both cuDNN and cuBLAS. The script
@@ -32,6 +37,7 @@ imports no JAX: it is the quickest proof that the port runs on the card.
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -52,10 +58,18 @@ SEED = 0
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # rtol = atol
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of the tensor's largest value
 HEAD_TOL = 1e-4  # metres, fused vs plain head on the same model, rtol 1e-5
-STEP_TOL = 1e-3  # kernels vs plain step: loss rtol, gradients of the largest value
+# kernels vs plain step: loss rtol, gradients of the largest value
+STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # kernel launches per training step; a head backward call launches two
-# kernels (the pixel and the weight kernel)
-STEP_LAUNCHES = {"bins_head_fwd": 1, "bins_head_bwd": 2, "chamfer": 1}
+# kernels (the pixel and the weight kernel). bf16 features take the
+# tensor-core head kernels, float32 features the CUDA-core ones.
+STEP_LAUNCHES = {"bins_head_fwd": 0, "bins_head_bwd": 0, "bins_head_tc_fwd": 1,
+                 "bins_head_tc_bwd": 2, "chamfer": 1}
+F32_STEP_LAUNCHES = {"bins_head_fwd": 1, "bins_head_bwd": 2, "bins_head_tc_fwd": 0,
+                     "bins_head_tc_bwd": 0, "chamfer": 1}
+# the head's products at the flagship shape: (16 x 208 x 272 pixels, 128)
+# by (128, 256 bins)
+HEAD_PIXELS = TRAIN_BATCH * (TRAIN_HW[0] // 2) * (TRAIN_HW[1] // 2)
 
 # The H100's published peaks (SXM, dense): HBM bytes/s, f32 CUDA-core
 # instructions/s (67 TFLOP/s counts an FMA as two), bf16 tensor-core FLOP/s.
@@ -112,19 +126,22 @@ def toolchain(build):
     return smi
 
 
-def build_all(build, modules):
-    """Phase 2: one nvcc per source, started together."""
-    def timed(module):
+def build_all(build, libraries):
+    """Phase 2: one nvcc per source, started together; `libraries` maps each
+    source to the function that builds and loads it."""
+    def timed(load):
         t0 = time.perf_counter()
-        module.library()
+        load()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(modules)) as pool:
-        seconds = list(pool.map(timed, modules))
-    for module, s in zip(modules, seconds):
-        source = module._SOURCE
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        seconds = list(pool.map(timed, libraries.values()))
+    for source, s in zip(libraries, seconds):
         print(f"build: {source} in {s:.2f} s (all sources built in parallel)")
-        print(build.library_path(source).with_suffix(".log").read_text().strip())
+        log = build.library_path(source).with_suffix(".log").read_text().strip()
+        print(log)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+        check(spills and all(n == "0" for n in spills), f"{source}: ptxas reports spills")
 
 
 def centers_from(widths):
@@ -178,8 +195,9 @@ def bound(work, rate, nbytes):
 
 
 def check_head_backward(bins_head, gen):
-    """The backward kernel against autograd through the plain version at the
-    training shape; returns stats per dtype."""
+    """The backward kernels against autograd through the plain version at
+    the training shape; returns stats per dtype. The bf16 kernels read the
+    forward's (max, sum), so their forward runs once, untimed, first."""
     stats = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = head_inputs(dtype, gen, TRAIN_BATCH, (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2))
@@ -187,14 +205,19 @@ def check_head_backward(bins_head, gen):
         inputs = [t.detach().clone().requires_grad_() for t in args]
         plain_out = bins_head.fused_bins_head_reference(*inputs)
         want = torch.autograd.grad(plain_out, inputs, upstream, retain_graph=True)
-        got = bins_head._launch_bwd(*args, upstream)
+        if dtype == torch.bfloat16:
+            saved = bins_head._launch_tc(*args)
+            backward = lambda: bins_head._launch_tc_bwd(*args, upstream, *saved)
+        else:
+            backward = lambda: bins_head._launch_bwd(*args, upstream)
+        got = backward()
         got = (got[0], got[1].reshape(args[1].shape), got[2], got[3])
         torch.cuda.synchronize()
         errs = {}
         for name, g, r in zip(("dx", "dW", "db", "dcenters"), got, want):
             check(g.shape == r.shape and g.dtype == r.dtype, f"{name}: {g.shape} {g.dtype}")
             errs[name] = ((g.float() - r.float()).abs().max().item(), max_rel(g, r))
-        ms = cuda_ms(lambda: bins_head._launch_bwd(*args, upstream), iters=5, warmup=1)
+        ms = cuda_ms(backward, iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, inputs, upstream,
                                                        retain_graph=True), iters=5, warmup=1)
         tol = GRAD_TOL[dtype]
@@ -213,8 +236,22 @@ def check_head_backward(bins_head, gen):
                         "plain_ms": plain_ms,
                         **bound(flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
                                 nbytes)}
-        del plain_out, inputs, want, got
+        del plain_out, inputs, want, got, backward
     return stats
+
+
+def cublas_yardstick(gen):
+    """One bf16 cuBLAS product of the head's size, (905,216 x 128) by
+    (128 x 256), as a yardstick of the card's tensor-core rate; the port
+    never calls it, and no single PyTorch call computes the head."""
+    a = torch.randn((HEAD_PIXELS, 128), generator=gen).to("cuda", torch.bfloat16)
+    b = torch.randn((128, N_BINS), generator=gen).to("cuda", torch.bfloat16)
+    ms = cuda_ms(lambda: torch.matmul(a, b))
+    flops = 2 * HEAD_PIXELS * 128 * N_BINS
+    print(f"yardstick: cuBLAS bf16 matmul ({HEAD_PIXELS} x 128) by (128 x {N_BINS}): "
+          f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s (bound "
+          f"{bound(flops, BF16_FLOPS, 2 * (a.numel() + b.numel() + HEAD_PIXELS * N_BINS))['bound_ms']:.4f} ms)")
+    del a, b
 
 
 def check_chamfer(chamfer, gen):
@@ -303,19 +340,21 @@ def serve(bins_head, gen, profile_dir):
         helper.predict(frame)
 
     torch.cuda.reset_peak_memory_stats()
-    bins_head.LAUNCHES = 0
+    reset_counts()
     latencies, outputs = [], []
     for frame in frames:
         t0 = time.perf_counter()
         outputs.append(helper.predict(frame))  # ends in a device->host copy
         latencies.append((time.perf_counter() - t0) * 1e3)
-    launches = bins_head.LAUNCHES
+    counts = read_counts()
+    launches = counts["bins_head_fwd"]
     peak = torch.cuda.max_memory_allocated()
     print(f"serve: {REQUESTS} requests of {FRAME_HW[0]}x{FRAME_HW[1]}, kernel launches "
           f"{launches}, median latency {statistics.median(latencies):.3f} ms "
           f"(all: {', '.join(f'{v:.3f}' for v in latencies)}), "
           f"max_memory_allocated {peak} bytes")
-    check(launches == REQUESTS, f"{launches} kernel launches for {REQUESTS} requests")
+    check(counts == {**{k: 0 for k in counts}, "bins_head_fwd": REQUESTS},
+          f"serving launches {counts} for {REQUESTS} requests")
     for centers, depth in outputs:
         check(depth.shape == (1, *FRAME_HW, 1), f"depth shape {depth.shape}")
         check(np.isfinite(depth).all() and depth.min() >= 1e-3 and depth.max() <= 10.0,
@@ -417,12 +456,14 @@ def flagship_args(**kw):
 def reset_counts():
     from mde_tpu_torch.kernels import bins_head, chamfer
     bins_head.LAUNCHES = bins_head.BWD_LAUNCHES = chamfer.LAUNCHES = 0
+    bins_head.TC_LAUNCHES = bins_head.TC_BWD_LAUNCHES = 0
 
 
 def read_counts():
     from mde_tpu_torch.kernels import bins_head, chamfer
     return {"bins_head_fwd": bins_head.LAUNCHES, "bins_head_bwd": bins_head.BWD_LAUNCHES,
-            "chamfer": chamfer.LAUNCHES}
+            "bins_head_tc_fwd": bins_head.TC_LAUNCHES,
+            "bins_head_tc_bwd": bins_head.TC_BWD_LAUNCHES, "chamfer": chamfer.LAUNCHES}
 
 
 def train(state_dict, gen, profile_dir):
@@ -495,7 +536,9 @@ def train_kernel_share(step, state, batch, profile_dir):
     total = sum(e.time_range.elapsed_us() for e in events)
     ours = {name: sum(e.time_range.elapsed_us() for e in events if name in e.name)
             for name in ("bins_head_fwd_kernel", "bins_head_bwd_pixel_kernel",
-                         "bins_head_bwd_weight_kernel", "chamfer_kernel")}
+                         "bins_head_bwd_weight_kernel", "bins_head_tc_fwd_kernel",
+                         "bins_head_tc_bwd_pixel_kernel", "bins_head_tc_bwd_weight_kernel",
+                         "chamfer_kernel")}
     if profile_dir is not None:
         out = Path(profile_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -511,18 +554,21 @@ def train_kernel_share(step, state, batch, profile_dir):
             f"{100 * busy_us / wall_us:.1f}%, {n_events} device events")
 
 
-def step_against_plain(state_dict, gen):
-    """Phase 6: one float32 step at batch 2 through the kernels and through
-    the unfused head and the plain chamfer, on the same weights and batch."""
+def step_against_plain(state_dict, gen, dtype):
+    """Phase 6: one step at batch 2 through the kernels and through the
+    unfused head and the plain chamfer, on the same weights and batch, in
+    float32 or under bf16 autocast; returns the kernel run's launches."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.train import make_loss_fn
 
     image = torch.randn((2, 3, *TRAIN_HW), generator=gen).cuda()
     depth = (0.05 + 9.9 * torch.rand((2, 1, *TRAIN_HW), generator=gen)).cuda()
+    label = "float32" if dtype == torch.float32 else "bf16 autocast"
+    tol = STEP_TOL[dtype]
     results = {}
     for kernels in (True, False):
-        args = flagship_args(compute_dtype="float32", use_fused_head=kernels,
-                             use_pallas_chamfer=kernels)
+        args = flagship_args(compute_dtype="float32" if dtype == torch.float32 else "bfloat16",
+                             use_fused_head=kernels, use_pallas_chamfer=kernels)
         model = build_model(args).cuda().train()
         model.load_state_dict(state_dict, strict=True)
         loss_fn = make_loss_fn(args)
@@ -537,21 +583,23 @@ def step_against_plain(state_dict, gen):
         counts = read_counts()
         grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
                  if k.startswith(("conv_out.", "adaptive_bins_layer.regressor."))}
-        results[kernels] = (loss.item(), l_dense.item(), l_chamfer.item(), grads)
-        print(f"step check, {'kernels' if kernels else 'plain'}: loss {loss.item():.7f} "
+        results[kernels] = (loss.item(), l_dense.item(), l_chamfer.item(), grads, counts)
+        print(f"step check {label}, {'kernels' if kernels else 'plain'}: loss {loss.item():.7f} "
               f"silog {l_dense.item():.7f} chamfer {l_chamfer.item():.7e}, launches {counts}, "
               f"{seconds:.2f} s, max_memory_allocated {torch.cuda.max_memory_allocated()} "
               f"bytes")
-        want = STEP_LAUNCHES if kernels else {k: 0 for k in STEP_LAUNCHES}
-        check(counts == want, f"step check launches {counts}, expected {want}")
+        want = F32_STEP_LAUNCHES if dtype == torch.float32 else STEP_LAUNCHES
+        want = want if kernels else {k: 0 for k in want}
+        check(counts == want, f"step check {label} launches {counts}, expected {want}")
         del model, loss
     kern, plain = results[True], results[False]
     for name, a, b in zip(("loss", "silog", "chamfer"), kern[:3], plain[:3]):
-        check(abs(a - b) <= STEP_TOL * abs(b), f"step check {name}: {a} vs {b}")
+        check(abs(a - b) <= tol * abs(b), f"step check {label} {name}: {a} vs {b}")
     worst = max((max_rel(kern[3][k], plain[3][k]), k) for k in plain[3])
-    print(f"step check: loss, silog, chamfer within rtol {STEP_TOL}; largest gradient error "
-          f"{worst[0]:.3e} of the largest value ({worst[1]}; tolerance {STEP_TOL})")
-    check(worst[0] <= STEP_TOL, f"step check gradient {worst}")
+    print(f"step check {label}: loss, silog, chamfer within rtol {tol}; largest gradient "
+          f"error {worst[0]:.3e} of the largest value ({worst[1]}; tolerance {tol})")
+    check(worst[0] <= tol, f"step check {label} gradient {worst}")
+    return kern[4]
 
 
 def main(argv):
@@ -572,29 +620,43 @@ def main(argv):
     gen = torch.Generator().manual_seed(SEED)
 
     toolchain(build)
-    build_all(build, [bins_head, chamfer])
+    build_all(build, {bins_head._SOURCE: bins_head.library,
+                      bins_head._TC_SOURCE: bins_head.tc_library,
+                      chamfer._SOURCE: chamfer.library})
 
-    check_head_forward(bins_head, gen, 2, (FRAME_HW[0] // 2, FRAME_HW[1] // 2), "serving")
+    serving_fwd = check_head_forward(bins_head, gen, 2, (FRAME_HW[0] // 2, FRAME_HW[1] // 2),
+                                     "serving")[torch.float32]
     fwd = check_head_forward(bins_head, gen, TRAIN_BATCH, (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2),
-                             "training")[torch.bfloat16]
-    bwd = check_head_backward(bins_head, gen)[torch.bfloat16]
+                             "training")
+    bwd = check_head_backward(bins_head, gen)
     cham = check_chamfer(chamfer, gen)
+    cublas_yardstick(gen)
     torch.cuda.empty_cache()
 
-    serve(bins_head, gen, args.profile)
+    # each path is driven with the counts at 0 and read right after it
+    launches = {"bins_head_fwd": serve(bins_head, gen, args.profile)}
     torch.cuda.empty_cache()
 
     shell = UnetAdaptiveBins(n_bins=N_BINS, min_val=1e-3, max_val=10.0,
                              encoder_name="efficientnet-b1")
     state_dict = seeded_state_dict(shell, gen)
-    launches = train(state_dict, gen, args.profile)
+    trained = train(state_dict, gen, args.profile)
+    launches.update({k: trained[k] for k in ("bins_head_tc_fwd", "bins_head_tc_bwd",
+                                             "chamfer")})
     torch.cuda.empty_cache()
-    step_against_plain(state_dict, gen)
+    launches["bins_head_bwd"] = step_against_plain(state_dict, gen,
+                                                   torch.float32)["bins_head_bwd"]
+    torch.cuda.empty_cache()
+    step_against_plain(state_dict, gen, torch.bfloat16)
 
-    rows = [("bins_head_fwd", "mde_tpu_torch/csrc/bins_head.cu",
-             "mde_tpu/kernels/bins_head.py:76", fwd),
-            ("bins_head_bwd", "mde_tpu_torch/csrc/bins_head.cu",
-             "mde_tpu/kernels/bins_head.py:84", bwd),
+    head = "mde_tpu/kernels/bins_head.py"
+    rows = [("bins_head_fwd", "mde_tpu_torch/csrc/bins_head.cu", f"{head}:76", serving_fwd),
+            ("bins_head_bwd", "mde_tpu_torch/csrc/bins_head.cu", f"{head}:84",
+             bwd[torch.float32]),
+            ("bins_head_tc_fwd", "mde_tpu_torch/csrc/bins_head_tc.cu", f"{head}:76",
+             fwd[torch.bfloat16]),
+            ("bins_head_tc_bwd", "mde_tpu_torch/csrc/bins_head_tc.cu", f"{head}:84",
+             bwd[torch.bfloat16]),
             ("chamfer", "mde_tpu_torch/csrc/chamfer.cu", "mde_tpu/kernels/chamfer.py:48", cham)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

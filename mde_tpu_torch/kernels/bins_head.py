@@ -1,14 +1,17 @@
 """Fused AdaBins bins head: 1x1 conv -> softmax over bins -> bin-centers sum,
 port of `mde_tpu/kernels/bins_head.py`, forward and backward.
 
-`fused_bins_head` runs the hand-written CUDA kernels of `csrc/bins_head.cu`
-for CUDA tensors, through `FusedBinsHead`, an autograd.Function whose forward
-launches the forward kernel (replacing the Pallas `_fwd_kernel`) and whose
-backward launches the backward kernel (replacing `_bwd_kernel`) and folds its
-per-block partials as `_fused_core_bwd` folds its per-tile ones. For CPU
-tensors it runs `fused_bins_head_reference`, the plain PyTorch version with
-the same bf16 rounding points, and autograd differentiates that. There is no
-fallback between the two: a CUDA tensor the kernels cannot take raises.
+`fused_bins_head` runs hand-written CUDA kernels for CUDA tensors, through
+`FusedBinsHead`, an autograd.Function whose forward launches a forward kernel
+(replacing the Pallas `_fwd_kernel`) and whose backward launches two backward
+kernels (replacing `_bwd_kernel`) and folds their per-block partials as
+`_fused_core_bwd` folds its per-tile ones. The features' dtype picks the
+kernel family: float32 goes to the CUDA-core kernels of `csrc/bins_head.cu`,
+bfloat16 to the tensor-core kernels of `csrc/bins_head_tc.cu`, whose forward
+also saves each pixel's softmax (max, sum) for its backward. For CPU tensors
+it runs `fused_bins_head_reference`, the plain PyTorch version with the same
+bf16 rounding points, and autograd differentiates that. There is no fallback
+between the three: a CUDA tensor the kernels cannot take raises.
 
 The model (models/unet_adaptive_bins.py) takes this path only where
 `fused_head_supported` holds, which needs at least 129 mViT tokens for the
@@ -27,14 +30,18 @@ from ..ops.bins import depth_from_bins
 from . import build
 
 _CHANNELS = 128
-_SOURCE = "bins_head.cu"
+_SOURCE = "bins_head.cu"       # float32: CUDA-core kernels
+_TC_SOURCE = "bins_head_tc.cu"  # bfloat16: tensor-core kernels
 _LIB = None
+_TC_LIB = None
 
-# Kernel launches since the last reset, forward and backward; only the CUDA
-# path adds to them. One backward call launches two kernels (the pixel and
-# the weight kernel) and adds 2.
-LAUNCHES = 0
-BWD_LAUNCHES = 0
+# Kernel launches since the last reset, forward and backward, per family;
+# only the CUDA path adds to them. One backward call launches two kernels
+# (the pixel and the weight kernel) and adds 2.
+LAUNCHES = 0          # CUDA-core forward (float32)
+BWD_LAUNCHES = 0      # CUDA-core backward
+TC_LAUNCHES = 0       # tensor-core forward (bfloat16)
+TC_BWD_LAUNCHES = 0   # tensor-core backward
 
 
 def fused_head_supported(h: int, w: int, n_bins: int) -> bool:
@@ -116,26 +123,32 @@ def fused_bins_head(features_nchw: torch.Tensor, weight: torch.Tensor,
 
 
 class FusedBinsHead(torch.autograd.Function):
-    """The CUDA forward and backward kernels as one differentiable op. The
-    amp decorators keep the dtypes as they come under autocast: features in
-    their dtype, weight, bias and centers in float32."""
+    """The CUDA forward and backward kernels as one differentiable op, of
+    the family the features' dtype picks. The amp decorators keep the dtypes
+    as they come under autocast: features in their dtype, weight, bias and
+    centers in float32."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, x, weight, bias, centers):
+        if x.dtype == torch.bfloat16:
+            out, stats = _launch_tc(x, weight, bias, centers)
+            ctx.save_for_backward(x, weight, bias, centers, out, stats)
+            return out
         ctx.save_for_backward(x, weight, bias, centers)
         return _launch(x, weight, bias, centers)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, grad):
-        x, weight, bias, centers = ctx.saved_tensors
-        dx, dw, db, dc = _launch_bwd(x, weight, bias, centers, grad)
-        return dx, dw.reshape(weight.shape), db, dc
+        saved = ctx.saved_tensors
+        launch = _launch_tc_bwd if saved[0].dtype == torch.bfloat16 else _launch_bwd
+        dx, dw, db, dc = launch(*saved[:4], grad, *saved[4:])
+        return dx, dw.reshape(saved[1].shape), db, dc
 
 
 def library() -> ctypes.CDLL:
-    """The built kernel library (nvcc runs here on first use)."""
+    """The built CUDA-core kernel library (nvcc runs here on first use)."""
     global _LIB
     if _LIB is None:
         lib = build.load(_SOURCE)
@@ -160,6 +173,30 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+def tc_library() -> ctypes.CDLL:
+    """The built tensor-core kernel library (nvcc runs here on first use)."""
+    global _TC_LIB
+    if _TC_LIB is None:
+        lib = build.load(_TC_SOURCE)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mde_bins_head_tc_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.mde_bins_head_tc_fwd.restype = i32
+        lib.mde_bins_head_tc_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
+        lib.mde_bins_head_tc_bwd.restype = i32
+        lib.mde_bins_head_tc_weight_blocks.argtypes = [i32] * 4
+        lib.mde_bins_head_tc_weight_blocks.restype = i32
+        lib.mde_cuda_error_string.argtypes = [i32]
+        lib.mde_cuda_error_string.restype = ctypes.c_char_p
+        _TC_LIB = lib
+    return _TC_LIB
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.mde_cuda_error_string(err).decode())
+
+
 def _launch(x, weight, bias, centers):
     global LAUNCHES
     lib = library()
@@ -170,9 +207,7 @@ def _launch(x, weight, bias, centers):
         x.data_ptr(), int(x.dtype == torch.bfloat16), weight.data_ptr(),
         bias.data_ptr(), centers.data_ptr(), out.data_ptr(), b, h * w,
         weight.shape[0], x.device.index, stream)
-    if err != 0:
-        raise RuntimeError("bins-head kernel launch failed: "
-                           + lib.mde_cuda_error_string(err).decode())
+    _raise_on(lib, err, "bins-head")
     LAUNCHES += 1
     return out
 
@@ -198,8 +233,58 @@ def _launch_bwd(x, weight, bias, centers, grad):
         bias.data_ptr(), centers.data_ptr(), g.data_ptr(), dx.data_ptr(),
         stats.data_ptr(), part_dbc[0].data_ptr(), part_dbc[1].data_ptr(),
         part_dw.data_ptr(), b, hw, n, x.device.index, stream)
-    if err != 0:
-        raise RuntimeError("bins-head backward kernel launch failed: "
-                           + lib.mde_cuda_error_string(err).decode())
+    _raise_on(lib, err, "bins-head backward")
     BWD_LAUNCHES += 2
     return dx, part_dw.sum(dim=(0, 1)), part_dbc[0].sum(dim=(0, 1)), part_dbc[1].sum(dim=1)
+
+
+def _vec(x, hw):
+    """Whether the tensor-core kernels may move x in 16-byte rows: hw % 8 == 0
+    and x 16-byte aligned (else they go element by element)."""
+    return int(hw % 8 == 0 and x.data_ptr() % 16 == 0)
+
+
+def _launch_tc(x, weight, bias, centers):
+    """The bf16 tensor-core forward; returns the depth (B, 1, H, W) and each
+    pixel's softmax (max, sum) as (2, B, H*W), which its backward reads."""
+    global TC_LAUNCHES
+    lib = tc_library()
+    b, _, h, w = x.shape
+    hw = h * w
+    out = torch.empty((b, 1, h, w), dtype=torch.float32, device=x.device)
+    stats = torch.empty((2, b, hw), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.mde_bins_head_tc_fwd(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), centers.data_ptr(),
+        out.data_ptr(), stats.data_ptr(), b, hw, weight.shape[0], _vec(x, hw),
+        x.device.index, stream)
+    _raise_on(lib, err, "bins-head tensor-core")
+    TC_LAUNCHES += 1
+    return out, stats
+
+
+def _launch_tc_bwd(x, weight, bias, centers, grad, out, stats):
+    """The bf16 tensor-core backward kernels, from the forward's depth and
+    stats; returns (dx, dW (n_bins, 128), db, dcenters), partials folded."""
+    global TC_BWD_LAUNCHES
+    lib = tc_library()
+    b, _, h, w = x.shape
+    hw, n = h * w, weight.shape[0]
+    g = grad.float().contiguous()
+    blocks = lib.mde_bins_head_tc_weight_blocks(b, hw, n, x.device.index)
+    if blocks <= 0:
+        raise RuntimeError("bins-head tensor-core backward: no launch shape for the "
+                           "weight kernel on this device")
+    dx = torch.empty_like(x)
+    part_dw = torch.empty((blocks, n, _CHANNELS), dtype=torch.float32, device=x.device)
+    part_db = torch.empty((blocks, n), dtype=torch.float32, device=x.device)
+    part_dc = torch.zeros((blocks, b, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.mde_bins_head_tc_bwd(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), centers.data_ptr(),
+        g.data_ptr(), out.data_ptr(), stats.data_ptr(), dx.data_ptr(),
+        part_dw.data_ptr(), part_db.data_ptr(), part_dc.data_ptr(), blocks, b, hw, n,
+        _vec(x, hw), x.device.index, stream)
+    _raise_on(lib, err, "bins-head tensor-core backward")
+    TC_BWD_LAUNCHES += 2
+    return dx, part_dw.sum(dim=0), part_db.sum(dim=0), part_dc.sum(dim=0)

@@ -3,7 +3,8 @@
 Each source is compiled on its own into a shared library with a plain C
 interface, for sm_90a (Hopper), at first use. The library lands in
 `.build/mde_tpu_torch/` at the repository root, named by a hash of the
-source, so an edited source is rebuilt and an unchanged one is loaded as is;
+source, of every header in `csrc/` (`*.cuh`, `*.h`) and of the flags, so an
+edited source or header is rebuilt and an unchanged tree is loaded as is;
 ptxas's report (registers, shared memory, spills) is kept beside it as .log.
 Nothing here runs at import time: this module is imported on machines with
 no CUDA toolkit.
@@ -34,9 +35,12 @@ def nvcc_path() -> str:
 def library_path(source: str) -> Path:
     """Where the library built from csrc/<source> lives."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}_{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    headers = sorted(p for pattern in ("*.cuh", "*.h") for p in CSRC_DIR.glob(pattern))
+    for header in headers:
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def load(source: str) -> ctypes.CDLL:

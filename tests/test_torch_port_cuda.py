@@ -6,8 +6,11 @@ with the card but without JAX, where tests/conftest.py cannot load:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-float32 comparisons run with TF32 off. Forward tolerances are those of
-tests/test_kernels.py: rtol/atol 1e-5 in float32, 2e-2 in bfloat16.
+float32 features go to the CUDA-core kernels (csrc/bins_head.cu), bfloat16
+features to the tensor-core kernels (csrc/bins_head_tc.cu); each family has
+its own launch counters. float32 comparisons run with TF32 off. Forward
+tolerances are those of tests/test_kernels.py: rtol/atol 1e-5 in float32,
+2e-2 in bfloat16.
 Gradients are compared by their largest error against the largest reference
 value of the tensor: 1e-4 in float32 (dW and db are sums over up to 150k
 pixels, taken by the kernel in per-block partials and by autograd in another
@@ -35,27 +38,48 @@ def cuda():
     return torch.device("cuda")
 
 
-def _head_inputs(device, dtype, b, h, w, n, seed=3):
+def _head_inputs(device, dtype, b, h, w, n, seed=3, misaligned=False):
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn((b, 128, h, w), generator=gen).to(device, dtype)
+    if misaligned:  # contiguous, but 2 bytes past a 16-byte boundary
+        x = torch.empty(x.numel() + 1, dtype=dtype, device=device)[1:].view(x.shape).copy_(x)
     weight = (0.1 * torch.randn((n, 128, 1, 1), generator=gen)).to(device)
     bias = (0.1 * torch.randn((n,), generator=gen)).to(device)
     centers = (10 * torch.rand((b, n), generator=gen)).sort(dim=1).values.to(device)
     return x, weight, bias, centers
 
 
+def _fwd_count(dtype):
+    return bins_head.TC_LAUNCHES if dtype == torch.bfloat16 else bins_head.LAUNCHES
+
+
+def _bwd_count(dtype):
+    return bins_head.TC_BWD_LAUNCHES if dtype == torch.bfloat16 else bins_head.BWD_LAUNCHES
+
+
+# bf16 moves features in 16-byte rows only where hw % 8 == 0 (24 here, half
+# a 16-pixel unit), else element by element (63, 65, 1617); it keeps W
+# resident in shared memory up to 640 bins and stages it in chunks above
+# that (896 and 1024 bins here)
+HEAD_SHAPES = [(2, 8, 16, 128), (2, 240, 320, 256), (1, 7, 9, 256), (3, 33, 49, 384),
+               (2, 5, 13, 128), (2, 4, 6, 256), (16, 208, 272, 256), (2, 24, 40, 512),
+               (1, 7, 9, 896), (2, 12, 20, 1024)]
+HEAD_IDS = ["small", "serving", "ragged63", "ragged1617_384", "ragged65", "hw24", "flagship",
+            "bins512", "ragged63_896", "bins1024"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,h,w,n", [(2, 8, 16, 128), (2, 240, 320, 256),
-                                     (1, 7, 9, 256), (3, 33, 49, 384)])
+@pytest.mark.parametrize("b,h,w,n", HEAD_SHAPES, ids=HEAD_IDS)
 def test_bins_head_kernel_matches_plain(cuda, dtype, b, h, w, n):
-    """Includes ragged pixel counts (63, 1617), which the kernel masks."""
+    """Includes ragged pixel counts (24, 63, 65, 1617), which the kernels
+    mask, the flagship training shape and 512 to 1024 bins."""
     args = _head_inputs(cuda, dtype, b, h, w, n)
     want = bins_head.fused_bins_head_reference(*args)
-    before = bins_head.LAUNCHES
+    before = _fwd_count(dtype)
     got = bins_head.fused_bins_head(*args)
     torch.cuda.synchronize()
-    assert bins_head.LAUNCHES == before + 1
+    assert _fwd_count(dtype) == before + 1
     assert got.shape == (b, 1, h, w) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
@@ -74,21 +98,54 @@ def _assert_grad_close(got, want, tol, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,h,w,n", [(2, 8, 16, 128), (2, 240, 320, 256),
-                                     (1, 7, 9, 256), (3, 33, 49, 384)])
+@pytest.mark.parametrize("b,h,w,n", HEAD_SHAPES, ids=HEAD_IDS)
 def test_bins_head_backward_kernel_matches_plain(cuda, dtype, b, h, w, n):
-    """dx, dW, db and dcenters of the backward kernel against autograd
-    through the plain version; ragged pixel counts 63 and 1617 included."""
+    """dx, dW, db and dcenters of the backward kernels against autograd
+    through the plain version; ragged pixel counts (24, 63, 65, 1617), the
+    flagship training shape and 512 to 1024 bins included."""
     args = _head_inputs(cuda, dtype, b, h, w, n)
     upstream = torch.randn((b, 1, h, w), generator=torch.Generator().manual_seed(5)).to(cuda)
     _, want = _head_grads(bins_head.fused_bins_head_reference, args, upstream)
-    before = bins_head.BWD_LAUNCHES
+    before = _bwd_count(dtype)
     _, got = _head_grads(bins_head.fused_bins_head, args, upstream)
     torch.cuda.synchronize()
-    assert bins_head.BWD_LAUNCHES == before + 2  # the pixel and the weight kernel
+    assert _bwd_count(dtype) == before + 2  # the pixel and the weight kernel
     for name, g, r, t in zip(("dx", "dW", "db", "dcenters"), got, want, args):
         assert g.shape == t.shape and g.dtype == t.dtype, name
         _assert_grad_close(g, r, GRAD_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+def test_bins_head_bf16_kernels_take_misaligned_features(cuda):
+    """hw % 8 == 0, but the features start 2 bytes off a 16-byte boundary:
+    the tensor-core kernels then load them element by element."""
+    b, h, w, n = 2, 16, 24, 128
+    args = _head_inputs(cuda, torch.bfloat16, b, h, w, n, misaligned=True)
+    assert args[0].data_ptr() % 16 != 0
+    upstream = torch.randn((b, 1, h, w), generator=torch.Generator().manual_seed(8)).to(cuda)
+    want_out, want = _head_grads(bins_head.fused_bins_head_reference, args, upstream)
+    got_out, got = _head_grads(bins_head.fused_bins_head, args, upstream)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got_out, want_out, rtol=tol, atol=tol)
+    for name, g, r in zip(("dx", "dW", "db", "dcenters"), got, want):
+        _assert_grad_close(g, r, GRAD_TOL[torch.bfloat16], name)
+
+
+@pytest.mark.cuda
+def test_bins_head_dtype_picks_kernel_family(cuda):
+    """float32 features launch the CUDA-core kernels and only those,
+    bfloat16 features the tensor-core kernels and only those."""
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = [t.requires_grad_() for t in _head_inputs(cuda, dtype, 2, 16, 24, 128)]
+        before = (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
+                  bins_head.TC_BWD_LAUNCHES)
+        bins_head.fused_bins_head(*inputs).sum().backward()
+        torch.cuda.synchronize()
+        after = (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
+                 bins_head.TC_BWD_LAUNCHES)
+        step = (0, 0, 1, 2) if dtype == torch.bfloat16 else (1, 2, 0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == step, dtype
 
 
 @pytest.mark.cuda

@@ -50,23 +50,23 @@ def _port_args(feats, kernel, bias, centers, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [128, 256, 384])
 def test_plain_head_matches_pallas_kernel(dtype, n):
     feats, kernel, bias, centers = _head_inputs(seed=n, n=n)
     jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     want = jax_bins_head.fused_bins_head(jnp.asarray(feats, jdtype), jnp.asarray(kernel),
                                          jnp.asarray(bias), jnp.asarray(centers),
                                          interpret=True)
-    bins_head.LAUNCHES = 0
+    bins_head.LAUNCHES = bins_head.TC_LAUNCHES = 0
     got = bins_head.fused_bins_head(*_port_args(feats, kernel, bias, centers, dtype))
-    assert bins_head.LAUNCHES == 0
+    assert bins_head.LAUNCHES == bins_head.TC_LAUNCHES == 0
     assert got.shape == (2, 1, 8, 16) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), np.asarray(want),
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [128, 256, 384])
 def test_plain_head_gradients_match_pallas_backward(dtype, n):
     """dfeatures, dkernel, dbias and dcenters for a random depth gradient."""
     feats, kernel, bias, centers = _head_inputs(seed=n + 1, n=n)
