@@ -148,13 +148,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
                : "memory");
 }
 
-// 4 bytes global -> shared, asynchronously; src_bytes 0 fills zeros.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -533,91 +526,6 @@ bins_head_tc_bwd_pixel_kernel(const uint16_t* __restrict__ x, const float* __res
       });
 }
 
-
-// ----------------------------------------------------------- wgmma parts
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand (8-row
-// groups 1024 bytes apart; with one 64-element atom across, the stride
-// between atoms is never used, so both offsets carry 1024).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Makes this thread's shared-memory writes visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d += a b on the tensor cores for a warpgroup: a 64 x 16 bf16 A from
-// registers (each warp its 16 rows, in the mma.m16n8k16 A layout), B 16 x 64
-// through a shared-memory descriptor, MN-major if kTransB; d in the
-// m16n8 accumulator layout per warp, n8 block j in d[j].
-template <int kTransB>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t (&a)[4],
-                                       uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
-}
-
-// d += a b on the tensor cores for a warpgroup: a 64 x 16 bf16 A from
-// registers (each warp its 16 rows, in the mma.m16n8k16 A layout), B 16 x 128
-// through a shared-memory descriptor, MN-major if kTransB; d in the
-// m16n8 accumulator layout per warp, n8 block j in d[j].
-template <int kTransB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[16][4], const uint32_t (&a)[4],
-                                       uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
-}
-
 // ------------------------------------------------------ weight kernel
 
 // The block loads pixels p0 .. p0+63 of image img into a tile, zeros past hw.
@@ -784,442 +692,6 @@ bins_head_tc_bwd_weight_kernel(const uint16_t* __restrict__ x, const float* __re
   }
 }
 
-__global__ void __launch_bounds__(kDwWarps * 32, 1)
-bins_head_tc_bwd_weight_wgmma_kernel(const uint16_t* __restrict__ x, const float* __restrict__ w,
-                               const float* __restrict__ b, const float* __restrict__ c,
-                               const float* __restrict__ grad, const float* __restrict__ out,
-                               const float* __restrict__ stats, float* __restrict__ part_dw,
-                               float* __restrict__ part_db, float* __restrict__ part_dc,
-                               int batch, int hw, int n_bins, int vec) {
-  __shared__ __align__(1024) char tiles[2][kTileBytes];
-  __shared__ TileRows rows[2];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int mat = lane >> 3, i = lane & 7;
-  const int bin0 = (int)blockIdx.y * kDwBins + warp * 16 + g;
-  const int bin[2] = {bin0, bin0 + 8};
-
-  // this warp's 16 W rows as bf16 A fragments (16 bins x 128 channels)
-  uint32_t wa[8][4];
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const float* w0 = w + (size_t)bin[0] * kChannels + 16 * kk + 2 * t;
-    const float* w1 = w + (size_t)bin[1] * kChannels + 16 * kk + 2 * t;
-    wa[kk][0] = pack_bf16x2(w0[0], w0[1]);
-    wa[kk][1] = pack_bf16x2(w1[0], w1[1]);
-    wa[kk][2] = pack_bf16x2(w0[8], w0[9]);
-    wa[kk][3] = pack_bf16x2(w1[8], w1[9]);
-  }
-  const float bias[2] = {round_bf16(b[bin[0]]), round_bf16(b[bin[1]])};
-  float dw[16][4];  // dW rows bin[0], bin[1]; n8 block cb = channels 8 cb ..
-#pragma unroll
-  for (int cb = 0; cb < 16; ++cb) dw[cb][0] = dw[cb][1] = dw[cb][2] = dw[cb][3] = 0.f;
-  float db[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
-
-  const int per_img = (hw + kTilePx - 1) / kTilePx, total = batch * per_img;
-  const int per_block = (total + gridDim.x - 1) / gridDim.x;
-  const int begin = min(total, blockIdx.x * per_block), end = min(total, begin + per_block);
-  const size_t plane = (size_t)batch * hw;
-
-  // dc of image img is this block's sum over the image's pixels in its range
-  auto flush_dc = [&](int img) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float v = quad_sum(dc[r]);
-      if (t == 0) part_dc[((size_t)blockIdx.x * batch + img) * n_bins + bin[r]] = v;
-      dc[r] = 0.f;
-    }
-  };
-  auto load = [&](int buf, int tile) {
-    const int img = tile / per_img, p0 = (tile % per_img) * kTilePx;
-    load_tile(tiles[buf], x, img, p0, hw, vec);
-    if (threadIdx.x < kTilePx) {
-      const int p = p0 + threadIdx.x;
-      const size_t at = (size_t)img * hw + (p < hw ? p : 0);
-      rows[buf].max[threadIdx.x] = p < hw ? stats[at] : 0.f;
-      rows[buf].scale[threadIdx.x] = p < hw ? grad[at] / stats[plane + at] : 0.f;
-      rows[buf].depth[threadIdx.x] = p < hw ? out[at] : 0.f;
-    }
-  };
-
-  int img = begin < end ? begin / per_img : 0;
-  float cen[2] = {c[(size_t)img * n_bins + bin[0]], c[(size_t)img * n_bins + bin[1]]};
-  if (begin < end) load(0, begin);
-  cp_async_commit();
-  for (int tile = begin, buf = 0; tile < end; ++tile, buf ^= 1) {
-    if (tile + 1 < end) load(buf ^ 1, tile + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    fence_async_shared();
-    __syncthreads();
-    if (tile / per_img != img) {  // block-uniform
-      flush_dc(img);
-      img = tile / per_img;
-      cen[0] = c[(size_t)img * n_bins + bin[0]];
-      cen[1] = c[(size_t)img * n_bins + bin[1]];
-    }
-    const char* xt = tiles[buf];
-    const TileRows& tr = rows[buf];
-
-    // S^T = W X: 16 bins x 64 px; n8 block nb = pixels 8 nb ..
-    float s[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16<1>(s, wa[kk], sw128_desc(xt + kk * 2048));
-    wgmma_commit();
-    wgmma_wait_all();
-    // dlog^T, and the block's db and dc sums
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = j >> 1, px = nb * 8 + 2 * t + (j & 1);
-        const float pg = __expf(logit_bf16(s[nb][j], bias[r]) - tr.max[px]) * tr.scale[px];
-        const float dl = pg * (cen[r] - tr.depth[px]);
-        dc[r] += pg;
-        db[r] += dl;
-        s[nb][j] = dl;
-      }
-    }
-    // dW += dlog^T X^T over the tile's pixels, 16 at a time
-    uint32_t da[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      da[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      da[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      da[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      da[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16<0>(dw, da[kk], sw128_desc(xt + kk * 32));
-    wgmma_commit();
-    wgmma_wait_all();
-    __syncthreads();  // every warp is done with the tile before it is reloaded
-  }
-  if (begin < end) flush_dc(img);
-
-  // this block's partials; a block with no tiles writes zeros
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float v = quad_sum(db[r]);
-    if (t == 0) part_db[(size_t)blockIdx.x * n_bins + bin[r]] = v;
-  }
-#pragma unroll
-  for (int cb = 0; cb < 16; ++cb) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float2* dst = reinterpret_cast<float2*>(
-          part_dw + ((size_t)blockIdx.x * n_bins + bin[r]) * kChannels + cb * 8 + 2 * t);
-      *dst = make_float2(dw[cb][2 * r], dw[cb][2 * r + 1]);
-    }
-  }
-}
-
-struct TileRaw {  // per pixel of a tile: softmax max and sum, depth, g
-  float max[kTilePx], sum[kTilePx], depth[kTilePx], grad[kTilePx];
-};
-
-__global__ void __launch_bounds__(kDwWarps * 32, 1)
-bins_head_tc_bwd_weight2_kernel(const uint16_t* __restrict__ x, const float* __restrict__ w,
-                               const float* __restrict__ b, const float* __restrict__ c,
-                               const float* __restrict__ grad, const float* __restrict__ out,
-                               const float* __restrict__ stats, float* __restrict__ part_dw,
-                               float* __restrict__ part_db, float* __restrict__ part_dc,
-                               int batch, int hw, int n_bins, int vec) {
-  __shared__ __align__(128) char tiles[2][kTileBytes];
-  __shared__ TileRaw rows[2];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int mat = lane >> 3, i = lane & 7;
-  const int bin0 = (int)blockIdx.y * kDwBins + warp * 16 + g;
-  const int bin[2] = {bin0, bin0 + 8};
-
-  // this warp's 16 W rows as bf16 A fragments (16 bins x 128 channels)
-  uint32_t wa[8][4];
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const float* w0 = w + (size_t)bin[0] * kChannels + 16 * kk + 2 * t;
-    const float* w1 = w + (size_t)bin[1] * kChannels + 16 * kk + 2 * t;
-    wa[kk][0] = pack_bf16x2(w0[0], w0[1]);
-    wa[kk][1] = pack_bf16x2(w1[0], w1[1]);
-    wa[kk][2] = pack_bf16x2(w0[8], w0[9]);
-    wa[kk][3] = pack_bf16x2(w1[8], w1[9]);
-  }
-  const float bias[2] = {round_bf16(b[bin[0]]), round_bf16(b[bin[1]])};
-  float dw[16][4];  // dW rows bin[0], bin[1]; n8 block cb = channels 8 cb ..
-#pragma unroll
-  for (int cb = 0; cb < 16; ++cb) dw[cb][0] = dw[cb][1] = dw[cb][2] = dw[cb][3] = 0.f;
-  float db[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
-
-  const int per_img = (hw + kTilePx - 1) / kTilePx, total = batch * per_img;
-  const int per_block = (total + gridDim.x - 1) / gridDim.x;
-  const int begin = min(total, blockIdx.x * per_block), end = min(total, begin + per_block);
-  const size_t plane = (size_t)batch * hw;
-
-  // dc of image img is this block's sum over the image's pixels in its range
-  auto flush_dc = [&](int img) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float v = quad_sum(dc[r]);
-      if (t == 0) part_dc[((size_t)blockIdx.x * batch + img) * n_bins + bin[r]] = v;
-      dc[r] = 0.f;
-    }
-  };
-  auto load = [&](int buf, int tile) {
-    const int img = tile / per_img, p0 = (tile % per_img) * kTilePx;
-    load_tile(tiles[buf], x, img, p0, hw, vec);
-    if (threadIdx.x < kTilePx) {
-      const int p = p0 + threadIdx.x, in = p < hw ? 4 : 0;
-      const size_t at = (size_t)img * hw + (p < hw ? p : 0);
-      cp_async4(&rows[buf].max[threadIdx.x], stats + at, in);
-      cp_async4(&rows[buf].sum[threadIdx.x], stats + plane + at, in);
-      cp_async4(&rows[buf].depth[threadIdx.x], out + at, in);
-      cp_async4(&rows[buf].grad[threadIdx.x], grad + at, in);
-    }
-  };
-
-  int img = begin < end ? begin / per_img : 0;
-  float cen[2] = {c[(size_t)img * n_bins + bin[0]], c[(size_t)img * n_bins + bin[1]]};
-  if (begin < end) load(0, begin);
-  cp_async_commit();
-  for (int tile = begin, buf = 0; tile < end; ++tile, buf ^= 1) {
-    if (tile + 1 < end) load(buf ^ 1, tile + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (tile / per_img != img) {  // block-uniform
-      flush_dc(img);
-      img = tile / per_img;
-      cen[0] = c[(size_t)img * n_bins + bin[0]];
-      cen[1] = c[(size_t)img * n_bins + bin[1]];
-    }
-    const char* xt = tiles[buf];
-    const TileRaw& tr = rows[buf];
-
-    // S^T = W X: 16 bins x 64 px; n8 block nb = pixels 8 nb ..
-    float s[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-      for (int nb = 0; nb < 8; nb += 2) {
-        uint32_t bx[4];
-        ldsm_x4_trans(smem_u32(xt + tile_offset(16 * kk + (mat & 1) * 8 + i, nb + (mat >> 1))),
-                      bx);
-        mma_bf16(s[nb], wa[kk], bx[0], bx[1]);
-        mma_bf16(s[nb + 1], wa[kk], bx[2], bx[3]);
-      }
-    }
-    // dlog^T, and the block's db and dc sums
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      // columns 8 nb + 2 t + e: softmax max, g / sum (0 past hw, whose
-      // zero-filled sum is 0; a pixel's sum is at least 1), depth
-      float mx[2], sc[2], dep[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int px = nb * 8 + 2 * t + e;
-        const float sum = tr.sum[px];
-        mx[e] = tr.max[px];
-        sc[e] = sum > 0.f ? tr.grad[px] / sum : 0.f;
-        dep[e] = tr.depth[px];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = j >> 1, e = j & 1;
-        const float pg = __expf(logit_bf16(s[nb][j], bias[r]) - mx[e]) * sc[e];
-        const float dl = pg * (cen[r] - dep[e]);
-        dc[r] += pg;
-        db[r] += dl;
-        s[nb][j] = dl;
-      }
-    }
-    // dW += dlog^T X^T over the tile's pixels, 16 at a time
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t da[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int cb = 0; cb < 16; cb += 2) {
-        uint32_t bx[4];
-        ldsm_x4(smem_u32(xt + tile_offset((cb + (mat >> 1)) * 8 + i, 2 * kk + (mat & 1))), bx);
-        mma_bf16(dw[cb], da, bx[0], bx[1]);
-        mma_bf16(dw[cb + 1], da, bx[2], bx[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with the tile before it is reloaded
-  }
-  if (begin < end) flush_dc(img);
-
-  // this block's partials; a block with no tiles writes zeros
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float v = quad_sum(db[r]);
-    if (t == 0) part_db[(size_t)blockIdx.x * n_bins + bin[r]] = v;
-  }
-#pragma unroll
-  for (int cb = 0; cb < 16; ++cb) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float2* dst = reinterpret_cast<float2*>(
-          part_dw + ((size_t)blockIdx.x * n_bins + bin[r]) * kChannels + cb * 8 + 2 * t);
-      *dst = make_float2(dw[cb][2 * r], dw[cb][2 * r + 1]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kDwWarps * 32, 1)
-bins_head_tc_bwd_weight2_wgmma_kernel(const uint16_t* __restrict__ x, const float* __restrict__ w,
-                               const float* __restrict__ b, const float* __restrict__ c,
-                               const float* __restrict__ grad, const float* __restrict__ out,
-                               const float* __restrict__ stats, float* __restrict__ part_dw,
-                               float* __restrict__ part_db, float* __restrict__ part_dc,
-                               int batch, int hw, int n_bins, int vec) {
-  __shared__ __align__(1024) char tiles[2][kTileBytes];
-  __shared__ TileRaw rows[2];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int mat = lane >> 3, i = lane & 7;
-  const int bin0 = (int)blockIdx.y * kDwBins + warp * 16 + g;
-  const int bin[2] = {bin0, bin0 + 8};
-
-  // this warp's 16 W rows as bf16 A fragments (16 bins x 128 channels)
-  uint32_t wa[8][4];
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const float* w0 = w + (size_t)bin[0] * kChannels + 16 * kk + 2 * t;
-    const float* w1 = w + (size_t)bin[1] * kChannels + 16 * kk + 2 * t;
-    wa[kk][0] = pack_bf16x2(w0[0], w0[1]);
-    wa[kk][1] = pack_bf16x2(w1[0], w1[1]);
-    wa[kk][2] = pack_bf16x2(w0[8], w0[9]);
-    wa[kk][3] = pack_bf16x2(w1[8], w1[9]);
-  }
-  const float bias[2] = {round_bf16(b[bin[0]]), round_bf16(b[bin[1]])};
-  float dw[16][4];  // dW rows bin[0], bin[1]; n8 block cb = channels 8 cb ..
-#pragma unroll
-  for (int cb = 0; cb < 16; ++cb) dw[cb][0] = dw[cb][1] = dw[cb][2] = dw[cb][3] = 0.f;
-  float db[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
-
-  const int per_img = (hw + kTilePx - 1) / kTilePx, total = batch * per_img;
-  const int per_block = (total + gridDim.x - 1) / gridDim.x;
-  const int begin = min(total, blockIdx.x * per_block), end = min(total, begin + per_block);
-  const size_t plane = (size_t)batch * hw;
-
-  // dc of image img is this block's sum over the image's pixels in its range
-  auto flush_dc = [&](int img) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float v = quad_sum(dc[r]);
-      if (t == 0) part_dc[((size_t)blockIdx.x * batch + img) * n_bins + bin[r]] = v;
-      dc[r] = 0.f;
-    }
-  };
-  auto load = [&](int buf, int tile) {
-    const int img = tile / per_img, p0 = (tile % per_img) * kTilePx;
-    load_tile(tiles[buf], x, img, p0, hw, vec);
-    if (threadIdx.x < kTilePx) {
-      const int p = p0 + threadIdx.x, in = p < hw ? 4 : 0;
-      const size_t at = (size_t)img * hw + (p < hw ? p : 0);
-      cp_async4(&rows[buf].max[threadIdx.x], stats + at, in);
-      cp_async4(&rows[buf].sum[threadIdx.x], stats + plane + at, in);
-      cp_async4(&rows[buf].depth[threadIdx.x], out + at, in);
-      cp_async4(&rows[buf].grad[threadIdx.x], grad + at, in);
-    }
-  };
-
-  int img = begin < end ? begin / per_img : 0;
-  float cen[2] = {c[(size_t)img * n_bins + bin[0]], c[(size_t)img * n_bins + bin[1]]};
-  if (begin < end) load(0, begin);
-  cp_async_commit();
-  for (int tile = begin, buf = 0; tile < end; ++tile, buf ^= 1) {
-    if (tile + 1 < end) load(buf ^ 1, tile + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    fence_async_shared();
-    __syncthreads();
-    if (tile / per_img != img) {  // block-uniform
-      flush_dc(img);
-      img = tile / per_img;
-      cen[0] = c[(size_t)img * n_bins + bin[0]];
-      cen[1] = c[(size_t)img * n_bins + bin[1]];
-    }
-    const char* xt = tiles[buf];
-    const TileRaw& tr = rows[buf];
-
-    // S^T = W X: 16 bins x 64 px; n8 block nb = pixels 8 nb ..
-    float s[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16<1>(s, wa[kk], sw128_desc(xt + kk * 2048));
-    wgmma_commit();
-    wgmma_wait_all();
-    // dlog^T, and the block's db and dc sums
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      // columns 8 nb + 2 t + e: softmax max, g / sum (0 past hw, whose
-      // zero-filled sum is 0; a pixel's sum is at least 1), depth
-      float mx[2], sc[2], dep[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int px = nb * 8 + 2 * t + e;
-        const float sum = tr.sum[px];
-        mx[e] = tr.max[px];
-        sc[e] = sum > 0.f ? tr.grad[px] / sum : 0.f;
-        dep[e] = tr.depth[px];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = j >> 1, e = j & 1;
-        const float pg = __expf(logit_bf16(s[nb][j], bias[r]) - mx[e]) * sc[e];
-        const float dl = pg * (cen[r] - dep[e]);
-        dc[r] += pg;
-        db[r] += dl;
-        s[nb][j] = dl;
-      }
-    }
-    // dW += dlog^T X^T over the tile's pixels, 16 at a time
-    uint32_t da[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      da[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      da[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      da[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      da[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16<0>(dw, da[kk], sw128_desc(xt + kk * 32));
-    wgmma_commit();
-    wgmma_wait_all();
-    __syncthreads();  // every warp is done with the tile before it is reloaded
-  }
-  if (begin < end) flush_dc(img);
-
-  // this block's partials; a block with no tiles writes zeros
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float v = quad_sum(db[r]);
-    if (t == 0) part_db[(size_t)blockIdx.x * n_bins + bin[r]] = v;
-  }
-#pragma unroll
-  for (int cb = 0; cb < 16; ++cb) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float2* dst = reinterpret_cast<float2*>(
-          part_dw + ((size_t)blockIdx.x * n_bins + bin[r]) * kChannels + cb * 8 + 2 * t);
-      *dst = make_float2(dw[cb][2 * r], dw[cb][2 * r + 1]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------- launch
 
 cudaError_t device_limits(int device, int* max_smem, int* sms) {
@@ -1358,29 +830,6 @@ extern "C" int mde_bins_head_tc_bwd(const void* x, const void* w, const void* b,
   if (err != cudaSuccess) return (int)err;
   bins_head_tc_bwd_weight_kernel<<<dim3(dw_blocks, n_bins / kDwBins), kDwWarps * 32, 0, s>>>(
       xb, wf, bf, cf, gf, of, sf, static_cast<float*>(part_dw), static_cast<float*>(part_db),
-      static_cast<float*>(part_dc), batch, hw, n_bins, vec);
-  return (int)cudaGetLastError();
-}
-
-
-// Experiment: the weight kernel alone, in one of four variants (mma.sync,
-// wgmma, and each with the per-pixel stats loaded by cp.async).
-extern "C" int mde_bins_head_tc_bwd_weight_only(const void* x, const void* w, const void* b,
-                                                const void* c, const void* g, const void* out,
-                                                const void* stats, void* part_dw, void* part_db,
-                                                void* part_dc, int dw_blocks, int batch, int hw,
-                                                int n_bins, int vec, int variant, int device,
-                                                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  decltype(&bins_head_tc_bwd_weight_kernel) kernels[] = {
-      bins_head_tc_bwd_weight_kernel, bins_head_tc_bwd_weight_wgmma_kernel,
-      bins_head_tc_bwd_weight2_kernel, bins_head_tc_bwd_weight2_wgmma_kernel};
-  kernels[variant]<<<dim3(dw_blocks, n_bins / kDwBins), kDwWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<const float*>(c), static_cast<const float*>(g), static_cast<const float*>(out),
-      static_cast<const float*>(stats), static_cast<float*>(part_dw), static_cast<float*>(part_db),
       static_cast<float*>(part_dc), batch, hw, n_bins, vec);
   return (int)cudaGetLastError();
 }
