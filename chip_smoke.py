@@ -13,10 +13,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
   3. each kernel against its plain PyTorch version: the head forward at the
      serving shape (B=2, 240x320 pixels) and, with the head backward, at the
      training shape (B=16, 208x272 pixels), 128 channels, 256 bins, float32
-     (CUDA-core kernels) and bfloat16 (tensor-core kernels); the chamfer
-     reductions, loss and gradient at (16 images of 416x544 pixels, 256
-     bins); and, as a yardstick of the card's bf16 tensor-core rate, one
-     cuBLAS product of the head's size, which the port never calls
+     (CUDA-core kernels) and bfloat16 (tensor-core kernels); the bf16
+     kernels again at 1,024 bins, where W goes through shared memory in
+     chunks; the chamfer reductions, loss and gradient at (16 images of
+     416x544 pixels, 256 bins); and, as a yardstick of the card's bf16
+     tensor-core rate, one cuBLAS product of the head's size, which the
+     port never calls
   4. the serving path: InferenceHelper (EfficientNet-B1, 256 bins, seeded
      random weights) answers 8 requests of 480x640 frames, each through the
      float32 head forward kernel
@@ -54,6 +56,7 @@ TRAIN_HW = (416, 544)
 TRAIN_BATCH = 16
 WARMUP_STEPS, TIMED_STEPS = 2, 8
 N_BINS = 256
+CHUNKED_BINS = 1024  # above the 640 bins the bf16 kernels keep resident
 SEED = 0
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # rtol = atol
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of the tensor's largest value
@@ -238,6 +241,36 @@ def check_head_backward(bins_head, gen):
                                 nbytes)}
         del plain_out, inputs, want, got, backward
     return stats
+
+
+def check_chunked_head(bins_head, gen):
+    """The bf16 tensor-core kernels with W staged through shared memory in
+    chunks (1,024 bins) against the plain version at the training pixel
+    count. Off the main path, which has 256 bins."""
+    hw = (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2)
+    args = head_inputs(torch.bfloat16, gen, TRAIN_BATCH, hw, n=CHUNKED_BINS)
+    upstream = torch.randn((TRAIN_BATCH, 1, *hw), generator=gen).cuda()
+    inputs = [t.detach().clone().requires_grad_() for t in args]
+    plain_out = bins_head.fused_bins_head_reference(*inputs)
+    want = torch.autograd.grad(plain_out, inputs, upstream)
+    out, saved = bins_head._launch_tc(*args)
+    got = bins_head._launch_tc_bwd(*args, upstream, out, saved)
+    torch.cuda.synchronize()
+    tol, grad_tol = KERNEL_TOL[torch.bfloat16], GRAD_TOL[torch.bfloat16]
+    abs_err = (out - plain_out.detach()).abs().max().item()
+    errs = {name: max_rel(g.reshape(r.shape), r)
+            for name, g, r in zip(("dx", "dW", "db", "dcenters"), got, want)}
+    fwd_ms = cuda_ms(lambda: bins_head._launch_tc(*args), iters=5, warmup=1)
+    bwd_ms = cuda_ms(lambda: bins_head._launch_tc_bwd(*args, upstream, out, saved),
+                     iters=5, warmup=1)
+    print(f"head bf16, W in chunks (B={TRAIN_BATCH}, {hw[0]}x{hw[1]}, {CHUNKED_BINS} bins): "
+          f"forward max_abs_err {abs_err:.3e} (rtol=atol={tol}); backward "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" of the largest value (tolerance {grad_tol}); forward {fwd_ms:.4f} ms, "
+          f"backward {bwd_ms:.4f} ms")
+    torch.testing.assert_close(out, plain_out.detach(), rtol=tol, atol=tol)
+    for name, rel in errs.items():
+        check(rel <= grad_tol, f"chunked head backward {name}: {rel:.3e} > {grad_tol}")
 
 
 def cublas_yardstick(gen):
@@ -629,6 +662,8 @@ def main(argv):
     fwd = check_head_forward(bins_head, gen, TRAIN_BATCH, (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2),
                              "training")
     bwd = check_head_backward(bins_head, gen)
+    check_chunked_head(bins_head, gen)
+    torch.cuda.empty_cache()
     cham = check_chamfer(chamfer, gen)
     cublas_yardstick(gen)
     torch.cuda.empty_cache()
