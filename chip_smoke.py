@@ -13,12 +13,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
   3. each kernel against its plain PyTorch version: the head forward at the
      serving shape (B=2, 240x320 pixels) and, with the head backward, at the
      training shape (B=16, 208x272 pixels), 128 channels, 256 bins, float32
-     (CUDA-core kernels) and bfloat16 (tensor-core kernels); the bf16
-     kernels again at 1,024 bins, where W goes through shared memory in
-     chunks; the chamfer reductions, loss and gradient at (16 images of
-     416x544 pixels, 256 bins); and, as a yardstick of the card's bf16
-     tensor-core rate, one cuBLAS product of the head's size, which the
-     port never calls
+     (CUDA-core kernels) and bfloat16 (tensor-core kernels), the float32
+     forward's share of its bound at both shapes; the bf16 kernels again at
+     1,024 bins, where W goes through shared memory in chunks; the chamfer
+     reductions, loss and gradient at (16 images of 416x544 pixels, 256
+     bins); and, as yardsticks of the card's rates, two cuBLAS products of
+     the head's sizes (bf16 at the training shape, float32 with TF32 off at
+     the serving shape), which the port never calls
   4. the serving path: InferenceHelper (EfficientNet-B1, 256 bins, seeded
      random weights) answers 8 requests of 480x640 frames, each through the
      float32 head forward kernel
@@ -59,7 +60,12 @@ N_BINS = 256
 CHUNKED_BINS = 1024  # above the 640 bins the bf16 kernels keep resident
 SEED = 0
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # rtol = atol
-GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of the tensor's largest value
+# gradients, of the tensor's largest value; bf16 per gradient: dx is rounded
+# to bf16, dW and db are f32 sums on both sides, as in the JAX kernel, and
+# differ where a logit's f32 sum rounds to the other bf16 neighbour in the
+# kernel's order (tests/test_torch_port_cuda.py GRAD_TOL)
+GRAD_TOL = {torch.float32: dict.fromkeys(("dx", "dW", "db", "dcenters"), 1e-4),
+            torch.bfloat16: {"dx": 2e-2, "dW": 1e-3, "db": 1e-3, "dcenters": 2e-2}}
 HEAD_TOL = 1e-4  # metres, fused vs plain head on the same model, rtol 1e-5
 # kernels vs plain step: loss rtol, gradients of the largest value
 STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
@@ -73,6 +79,8 @@ F32_STEP_LAUNCHES = {"bins_head_fwd": 1, "bins_head_bwd": 2, "bins_head_tc_fwd":
 # the head's products at the flagship shape: (16 x 208 x 272 pixels, 128)
 # by (128, 256 bins)
 HEAD_PIXELS = TRAIN_BATCH * (TRAIN_HW[0] // 2) * (TRAIN_HW[1] // 2)
+# the serving head's: a batch-2 flip-TTA forward, 240 x 320 pixels each
+SERVING_PIXELS = 2 * (FRAME_HW[0] // 2) * (FRAME_HW[1] // 2)
 
 # The H100's published peaks (SXM, dense): HBM bytes/s, f32 CUDA-core
 # instructions/s (67 TFLOP/s counts an FMA as two), bf16 tensor-core FLOP/s.
@@ -176,17 +184,17 @@ def check_head_forward(bins_head, gen, b, hw, label):
         tol = KERNEL_TOL[dtype]
         ms = cuda_ms(lambda: bins_head.fused_bins_head(*args))
         plain_ms = cuda_ms(lambda: bins_head.fused_bins_head_reference(*args))
-        print(f"head forward {label} {dtype}: max_abs_err {abs_err:.3e} max_rel_err "
-              f"{rel_err:.3e} (tolerance rtol=atol={tol}) kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms")
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         x = args[0]
         pixels, n = x.shape[0] * x.shape[2] * x.shape[3], args[1].shape[0]
         flops = 2 * pixels * 128 * n
         nbytes = x.numel() * x.element_size() + pixels * 4
-        stats[dtype] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                        **bound(flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
-                                nbytes)}
+        least = bound(flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS, nbytes)
+        print(f"head forward {label} {dtype}: max_abs_err {abs_err:.3e} max_rel_err "
+              f"{rel_err:.3e} (tolerance rtol=atol={tol}) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms bound {least['bound_ms']:.4f} ms ({least['bound_by']}), "
+              f"{100 * least['bound_ms'] / ms:.1f}% of the bound")
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        stats[dtype] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **least}
     return stats
 
 
@@ -227,10 +235,10 @@ def check_head_backward(bins_head, gen):
         print(f"head backward {dtype} (B={TRAIN_BATCH}, {args[0].shape[2]}x"
               f"{args[0].shape[3]}, {N_BINS} bins): " + ", ".join(
                   f"{k} max_abs_err {a:.3e} rel {r:.3e}" for k, (a, r) in errs.items())
-              + f" (tolerance {tol} of the largest value) kernel {ms:.4f} ms plain "
+              + f" (tolerance of the largest value: {tol}) kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms")
         for name, (_, rel) in errs.items():
-            check(rel <= tol, f"head backward {dtype} {name}: {rel:.3e} > {tol}")
+            check(rel <= tol[name], f"head backward {dtype} {name}: {rel:.3e} > {tol[name]}")
         x = args[0]
         pixels = x.shape[0] * x.shape[2] * x.shape[3]
         flops = 3 * 2 * pixels * 128 * N_BINS
@@ -270,21 +278,27 @@ def check_chunked_head(bins_head, gen):
           f"backward {bwd_ms:.4f} ms")
     torch.testing.assert_close(out, plain_out.detach(), rtol=tol, atol=tol)
     for name, rel in errs.items():
-        check(rel <= grad_tol, f"chunked head backward {name}: {rel:.3e} > {grad_tol}")
+        check(rel <= grad_tol[name],
+              f"chunked head backward {name}: {rel:.3e} > {grad_tol[name]}")
 
 
 def cublas_yardstick(gen):
-    """One bf16 cuBLAS product of the head's size, (905,216 x 128) by
-    (128 x 256), as a yardstick of the card's tensor-core rate; the port
-    never calls it, and no single PyTorch call computes the head."""
-    a = torch.randn((HEAD_PIXELS, 128), generator=gen).to("cuda", torch.bfloat16)
-    b = torch.randn((128, N_BINS), generator=gen).to("cuda", torch.bfloat16)
-    ms = cuda_ms(lambda: torch.matmul(a, b))
-    flops = 2 * HEAD_PIXELS * 128 * N_BINS
-    print(f"yardstick: cuBLAS bf16 matmul ({HEAD_PIXELS} x 128) by (128 x {N_BINS}): "
-          f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s (bound "
-          f"{bound(flops, BF16_FLOPS, 2 * (a.numel() + b.numel() + HEAD_PIXELS * N_BINS))['bound_ms']:.4f} ms)")
-    del a, b
+    """Two cuBLAS products of the head's sizes as yardsticks of the card's
+    rates, which the port never calls (no single PyTorch call computes the
+    head): bf16 (905,216 x 128) by (128 x 256), the training head's, on the
+    tensor cores; float32 (153,600 x 128) by (128 x 256), the serving
+    head's, with TF32 off."""
+    for dtype, pixels, rate in ((torch.bfloat16, HEAD_PIXELS, BF16_FLOPS),
+                                (torch.float32, SERVING_PIXELS, F32_FLOPS)):
+        a = torch.randn((pixels, 128), generator=gen).to("cuda", dtype)
+        b = torch.randn((128, N_BINS), generator=gen).to("cuda", dtype)
+        ms = cuda_ms(lambda: torch.matmul(a, b))
+        flops = 2 * pixels * 128 * N_BINS
+        nbytes = a.element_size() * (a.numel() + b.numel() + pixels * N_BINS)
+        print(f"yardstick: cuBLAS {dtype} matmul ({pixels} x 128) by (128 x {N_BINS}): "
+              f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s (bound "
+              f"{bound(flops, rate, nbytes)['bound_ms']:.4f} ms)")
+        del a, b
 
 
 def check_chamfer(chamfer, gen):

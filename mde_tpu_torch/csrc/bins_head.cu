@@ -1,130 +1,260 @@
-// Fused AdaBins bins head, forward and backward, for Hopper (sm_90a).
+// Fused AdaBins bins head in float32, forward and backward, on the CUDA cores
+// of Hopper (sm_90a). bf16 features go to the tensor-core kernels of
+// bins_head_tc.cu; the wrapper (kernels/bins_head.py) sends only float32 here.
 //
-// Replaces the Pallas TPU kernel mde_tpu/kernels/bins_head.py::_fwd_kernel
-// (launched per image by _fwd_one). For every pixel of the decoder's
-// 128-channel range-attention map:
+// Forward. Replaces the Pallas TPU kernel mde_tpu/kernels/bins_head.py::
+// _fwd_kernel (:76, launched per image by _fwd_one). For every pixel of the
+// decoder's 128-channel range-attention map:
 //   logit_n = sum_c W[n, c] x[c] + b[n]               (n < n_bins)
 //   depth   = sum_n softmax(logit)_n * centers[n]
 // without writing the (B, n_bins, HW) logits to device memory.
 //
-// Layout. The port is NCHW, so per image the features are a channel-major
-// (128, HW) matrix. A block owns kTile consecutive pixels of one image and
-// each thread owns one pixel: for a fixed channel, neighbouring threads read
-// neighbouring addresses (coalesced), and the thread keeps its pixel's 128
-// channels in registers. W, b and the image's centers are staged through
-// shared memory kBinsPerChunk bins at a time (66,560 bytes, above the 48 KB
-// default, hence the attribute); every thread reads the same W row, which
-// shared memory broadcasts. An online softmax (running max, sum and
-// centers-weighted sum) carries across the chunks. The ragged pixel edge is
-// masked here; the wrapper takes any HW.
+// What bounds it. 2 x 128 x n_bins flops a pixel (65,536 at 256 bins)
+// against 512 bytes of features read and 4 bytes of depth written: 128 flops
+// a byte, six times the card's float32 balance (67 TFLOP/s over 3.35 TB/s).
+// So the FMAs bound it: 10.07 GFLOP, 0.150 ms, at the serving shape (B=2,
+// 240x320 pixels, 256 bins). They run as full float32 FMAs, no TF32: the
+// serving path is the parity setting.
 //
-// What bounds it. At the serving shape (B=2, 240x320 pixels, 256 bins) the
-// head is 2*128*256 = 65,536 flops per pixel, about 10 GFLOP per request, on
-// the f32 CUDA cores (67 TFLOP/s), against about 79 MB of feature reads
-// (3.35 TB/s): some 0.15 ms of FMAs against 0.02 ms of reads, so the FMAs
-// and the shared-memory loads that feed them bound this version. Moving the
-// logits onto the tensor cores (wgmma on TMA-fed tiles) is later work.
-//
-// bf16 features reproduce the JAX rounding points (_logits_block): W rounded
-// to bf16, products accumulated in f32, the logit rounded to bf16, the bf16
-// bias added in bf16, then f32 for the softmax.
+// Design. The logits are a (pixels x 128) by (128 x bins) product, tiled as
+// an SGEMM, with the softmax folded in after each 128-bin chunk.
+//  - A block owns kFwdPx consecutive pixels of one image. Its feature tile
+//    X[128 ch][kFwdPx px] goes to shared memory once, by cp.async, as one
+//    contiguous row per channel of the NCHW layout.
+//  - W goes to shared memory transposed, W^T[ch][128 bins] for one chunk,
+//    kSliceCh channels at a time, through a double buffer: the next slice
+//    arrives by cp.async while the current one is in use. Every block reads
+//    W, so it comes from L2. A warp copies 4 bins x 8 channels per
+//    instruction (whole 32-byte sectors of W's rows), and the 132-float rows
+//    of W^T put those 32 stores on 32 banks.
+//  - Each thread accumulates 8 pixels x 8 bins in 64 registers: per channel
+//    two LDS.128 of X and two of W^T feed 64 FMAs. A warp is 4 pixel groups
+//    x 8 bin groups, and a thread's 8 pixels (bins) are two runs of 4 half a
+//    tile apart, so each LDS.128 reads 64 (128) contiguous bytes: one
+//    wavefront, no bank conflict.
+//  - After each chunk a thread folds its 8 bins into a running (max, sum,
+//    sum e c) for each of its 8 pixels, in registers: no thread talks to
+//    another inside the bin loop, and every bin count that is a multiple of
+//    128 runs. At the end the 16 threads that share a pixel merge their
+//    states through shared memory by the log-sum-exp rule.
+//  - Pixels past hw are zero in the tile and not written. A feature row
+//    moves in 16-byte copies where hw % 4 == 0 and the features are 16-byte
+//    aligned, else element by element into the same layout.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstddef>
-#include <type_traits>
+#include <cstdint>
 
 namespace {
 
 constexpr int kChannels = 128;      // decoder output channels (conv_out input)
-constexpr int kTile = 128;          // pixels per block = threads per block
-constexpr int kBinsPerChunk = 128;  // bins staged in shared memory at a time
-constexpr size_t kSmemBytes =
-    (size_t)(kBinsPerChunk * kChannels + 2 * kBinsPerChunk) * sizeof(float);
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kFwdPx = 128;                      // forward: pixels per block
+constexpr int kSliceCh = 32;                     // forward: W^T channels per stage
+constexpr int kFwdMinBlocks = 2;                 // forward: blocks per SM (launch bounds)
+constexpr int kFwdBins = 128;                    // forward: bins per chunk
+constexpr int kBinGroups = kFwdBins / 8;         // threads that share a pixel
+constexpr int kFwdThreads = kFwdPx / 8 * kBinGroups;
+constexpr int kPxWarps = kFwdPx / 32;            // warps along the pixels (4 groups each)
+constexpr int kSlices = kChannels / kSliceCh;    // stages per chunk
+constexpr int kWtStride = kFwdBins + 4;          // a W^T row in shared memory, floats
+constexpr int kXFloats = kChannels * kFwdPx;
+constexpr int kStageFloats = kSliceCh * kWtStride;
+constexpr size_t kFwdSmem = (size_t)(kXFloats + 2 * kStageFloats) * sizeof(float);
+static_assert(kChannels % kSliceCh == 0 && kSliceCh % 8 == 0, "W^T slices");
+static_assert(kFwdThreads == 32 * kPxWarps * (kBinGroups / 8), "warp layout");
+static_assert(3 * kBinGroups * kFwdPx <= 2 * kStageFloats, "merge scratch fits the W^T buffers");
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTile)
-bins_head_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+// 16 bytes global -> shared, asynchronously; src_bytes 0 fills zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; src_bytes 0 fills a zero.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The block's feature tile, channel rows of kFwdPx pixels from p0.
+__device__ __forceinline__ void load_x_tile(float* xs, const float* x_img, int p0, int hw,
+                                            bool vec) {
+  if (vec) {  // hw % 4 == 0: a 4-pixel chunk is wholly in or out
+    constexpr int kRowChunks = kFwdPx / 4;
+    for (int i = threadIdx.x; i < kChannels * kRowChunks; i += kFwdThreads) {
+      const int ch = i / kRowChunks, p = p0 + 4 * (i % kRowChunks);
+      const bool in = p < hw;
+      cp_async16(xs + 4 * i, x_img + (size_t)ch * hw + (in ? p : 0), in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kChannels * kFwdPx; i += kFwdThreads) {
+      const int ch = i / kFwdPx, p = p0 + i % kFwdPx;
+      const bool in = p < hw;
+      cp_async4(xs + i, x_img + (size_t)ch * hw + (in ? p : 0), in ? 4 : 0);
+    }
+  }
+}
+
+// W^T for bins n0..n0+127 and channels k0..k0+kSliceCh-1: lane & 7 picks the
+// channel, lane >> 3 the bin, of a warp's 4 x 8 group.
+__device__ __forceinline__ void load_wt_slice(float* wt, const float* w, int n0, int k0) {
+  constexpr int kChGroups = kSliceCh / 8;
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < kChGroups * (kFwdBins / 4); g += kFwdThreads / 32) {
+    const int ch = (g % kChGroups) * 8 + (lane & 7);
+    const int bin = (g / kChGroups) * 4 + (lane >> 3);
+    cp_async4(wt + ch * kWtStride + bin, w + (size_t)(n0 + bin) * kChannels + k0 + ch, 4);
+  }
+}
+
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+bins_head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ b, const float* __restrict__ c,
-                     float* __restrict__ out, int hw, int n_bins) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+                     float* __restrict__ out, int hw, int n_bins, int vec) {
   extern __shared__ float4 smem[];
-  float* w_s = reinterpret_cast<float*>(smem);  // [kBinsPerChunk][kChannels]
-  float* b_s = w_s + kBinsPerChunk * kChannels;  // [kBinsPerChunk]
-  float* c_s = b_s + kBinsPerChunk;              // [kBinsPerChunk]
+  float* xs = reinterpret_cast<float*>(smem);  // [kChannels][kFwdPx]
+  float* wts = xs + kXFloats;                  // 2 x [kSliceCh][kWtStride]
 
   const int img = blockIdx.y;
-  const int pix = blockIdx.x * kTile + threadIdx.x;
-  const bool live = pix < hw;
+  const int p0 = blockIdx.x * kFwdPx;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pg = (warp % kPxWarps) * 4 + (lane >> 3);  // pixel group
+  const int bg = (warp / kPxWarps) * 8 + (lane & 7);   // bin group
+  const int xa = pg * 4, xb = kFwdPx / 2 + pg * 4;     // the thread's pixels: xa.., xb..
+  const int wa = bg * 4, wb = kFwdBins / 2 + bg * 4;   // and bins in the chunk: wa.., wb..
 
-  float xr[kChannels];
-  const T* xp = x + (size_t)img * kChannels * hw + (live ? pix : 0);
-#pragma unroll
-  for (int ch = 0; ch < kChannels; ++ch) {
-    xr[ch] = live ? to_float(xp[(size_t)ch * hw]) : 0.f;
-  }
+  load_x_tile(xs, x + (size_t)img * kChannels * hw, p0, hw, vec != 0);
+  load_wt_slice(wts, w, 0, 0);
+  cp_async_commit();
 
   const float* c_img = c + (size_t)img * n_bins;
-  float run_max = -CUDART_INF_F, run_sum = 0.f, run_depth = 0.f;
-  for (int n0 = 0; n0 < n_bins; n0 += kBinsPerChunk) {
-    const int nb = min(kBinsPerChunk, n_bins - n0);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < nb * kChannels; i += kTile) {
-      const float v = w[(size_t)n0 * kChannels + i];
-      w_s[i] = kBf16 ? round_bf16(v) : v;
+  float run_max[8], run_sum[8], run_depth[8], acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    run_max[i] = -CUDART_INF_F;
+    run_sum[i] = run_depth[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+  const int stages = n_bins / kFwdBins * kSlices;
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) {
+      load_wt_slice(wts + ((st + 1) & 1) * kStageFloats, w, (st + 1) / kSlices * kFwdBins,
+                    (st + 1) % kSlices * kSliceCh);
     }
-    for (int i = threadIdx.x; i < nb; i += kTile) {
-      b_s[i] = kBf16 ? round_bf16(b[n0 + i]) : b[n0 + i];
-      c_s[i] = c_img[n0 + i];
-    }
+    cp_async_commit();
+    cp_async_wait<1>();  // the tile and this stage's slice are in
     __syncthreads();
 
-    for (int n = 0; n < nb; ++n) {
-      const float4* w_row = reinterpret_cast<const float4*>(w_s + n * kChannels);
-      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+    const float* xk = xs + (st % kSlices) * kSliceCh * kFwdPx;
+    const float* wk = wts + (st & 1) * kStageFloats;
+#pragma unroll 8
+    for (int k = 0; k < kSliceCh; ++k) {
+      const float4 x0 = *reinterpret_cast<const float4*>(xk + k * kFwdPx + xa);
+      const float4 x1 = *reinterpret_cast<const float4*>(xk + k * kFwdPx + xb);
+      const float4 w0 = *reinterpret_cast<const float4*>(wk + k * kWtStride + wa);
+      const float4 w1 = *reinterpret_cast<const float4*>(wk + k * kWtStride + wb);
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-      for (int q = 0; q < kChannels / 4; ++q) {
-        const float4 wv = w_row[q];
-        d0 = fmaf(wv.x, xr[4 * q + 0], d0);
-        d1 = fmaf(wv.y, xr[4 * q + 1], d1);
-        d2 = fmaf(wv.z, xr[4 * q + 2], d2);
-        d3 = fmaf(wv.w, xr[4 * q + 3], d3);
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
       }
-      const float dot = (d0 + d1) + (d2 + d3);
-      const float logit = kBf16 ? round_bf16(round_bf16(dot) + b_s[n]) : dot + b_s[n];
-      if (logit > run_max) {
-        const float scale = expf(run_max - logit);
-        run_sum *= scale;
-        run_depth *= scale;
-        run_max = logit;
-      }
-      const float e = expf(logit - run_max);
-      run_sum += e;
-      run_depth = fmaf(e, c_s[n], run_depth);
     }
+
+    if (st % kSlices == kSlices - 1) {  // a chunk is done: fold its 8 bins per pixel
+      const int n0 = st / kSlices * kFwdBins;
+      float bias[8], center[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + (j < 4 ? wa + j : wb + j - 4);
+        bias[j] = __ldg(b + n);
+        center[j] = __ldg(c_img + n);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float logit[8], chunk_max = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          logit[j] = acc[i][j] + bias[j];
+          chunk_max = fmaxf(chunk_max, logit[j]);
+          acc[i][j] = 0.f;
+        }
+        const float m = fmaxf(run_max[i], chunk_max);
+        const float scale = expf(run_max[i] - m);
+        float sum = 0.f, depth = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float e = expf(logit[j] - m);
+          sum += e;
+          depth = fmaf(e, center[j], depth);
+        }
+        run_sum[i] = fmaf(run_sum[i], scale, sum);
+        run_depth[i] = fmaf(run_depth[i], scale, depth);
+        run_max[i] = m;
+      }
+    }
+    __syncthreads();  // every thread is done with this stage's buffer
   }
-  if (live) out[(size_t)img * hw + pix] = run_depth / run_sum;
+
+  // Merge the 16 bin groups' states of each pixel: [3][kBinGroups][kFwdPx],
+  // in the W^T buffers, which no copy writes any more.
+  float* red = wts;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int px = i < 4 ? xa + i : xb + i - 4;
+    red[(0 * kBinGroups + bg) * kFwdPx + px] = run_max[i];
+    red[(1 * kBinGroups + bg) * kFwdPx + px] = run_sum[i];
+    red[(2 * kBinGroups + bg) * kFwdPx + px] = run_depth[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < kFwdPx && p0 + (int)threadIdx.x < hw) {
+    const int px = threadIdx.x;
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int g = 0; g < kBinGroups; ++g) m = fmaxf(m, red[g * kFwdPx + px]);
+    float sum = 0.f, depth = 0.f;
+#pragma unroll
+    for (int g = 0; g < kBinGroups; ++g) {
+      const float scale = expf(red[g * kFwdPx + px] - m);
+      sum = fmaf(red[(kBinGroups + g) * kFwdPx + px], scale, sum);
+      depth = fmaf(red[(2 * kBinGroups + g) * kFwdPx + px], scale, depth);
+    }
+    out[(size_t)img * hw + p0 + px] = depth / sum;
+  }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const float* w, const float* b, const float* c,
-                   float* out, int batch, int hw, int n_bins, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(bins_head_fwd_kernel<T>,
+cudaError_t launch(const float* x, const float* w, const float* b, const float* c, float* out,
+                   int batch, int hw, int n_bins, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(bins_head_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
+                                         (int)kFwdSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((hw + kTile - 1) / kTile, batch);
-  bins_head_fwd_kernel<T><<<grid, kTile, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), w, b, c, out, hw, n_bins);
+  const int vec = hw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid((hw + kFwdPx - 1) / kFwdPx, batch);
+  bins_head_fwd_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(x, w, b, c, out, hw, n_bins,
+                                                                vec);
   return cudaGetLastError();
 }
 
@@ -160,19 +290,15 @@ cudaError_t launch(const void* x, const float* w, const float* b, const float* c
 // lanes and images). Both kernels compute a logit with the same code, so they
 // agree on dlog bit for bit.
 //
-// bf16 features keep the JAX rounding points: logits as in the forward, and
-// dlog rounded to bf16 before both products (dx = dlog_bf16 W_bf16 summed in
-// f32, then rounded to bf16; dW = sum dlog_bf16 x_bf16 in f32); db and dc
-// are summed from the f32 values.
-//
 // What bounds it. 3 x 2 x 128 x n_bins flops per pixel (logits, dx, dW) at
 // the least: at the flagship training shape (16 x 208 x 272 pixels, 256
 // bins) 178 GFLOP, at least 2.7 ms on the f32 CUDA cores; these kernels
 // compute the logits three times (5 x 2 x 128 x n_bins per pixel). The x
-// read and dx write are 2 x 232 MB in bf16, 0.14 ms at 3.35 TB/s. So the
-// FMAs bound this version; moving the three products onto the tensor cores
-// is later work.
+// read and dx write are 2 x 463 MB, 0.28 ms at 3.35 TB/s. So the FMAs bound
+// this version. The float32 backward runs only under --compute_dtype
+// float32; the default bf16 training takes bins_head_tc.cu.
 
+constexpr int kBinsPerChunk = 128;      // pixel kernel: bins staged in shared memory at a time
 constexpr int kHalf = kChannels / 2;    // channels per thread of a pair
 constexpr int kPixPerBlockBwd = 64;     // pixel kernel: 4 warps x 16 pixels
 constexpr int kBinsPerBlockDw = 64;     // weight kernel: 4 warps x 16 bins
@@ -213,25 +339,16 @@ __device__ __forceinline__ void half_axpy(float s, const float4* shared4, float*
 
 // The full logit of a pixel from the two halves' dot products; every lane of
 // the warp must call it.
-template <bool kBf16>
 __device__ __forceinline__ float pair_logit(float partial, float bias) {
-  const float dot = partial + __shfl_xor_sync(kFull, partial, 16);
-  return kBf16 ? round_bf16(round_bf16(dot) + bias) : dot + bias;
+  return partial + __shfl_xor_sync(kFull, partial, 16) + bias;
 }
 
-__device__ __forceinline__ float to_storage(float v, float*) { return v; }
-__device__ __forceinline__ __nv_bfloat16 to_storage(float v, __nv_bfloat16*) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kPixPerBlockBwd * 2)
-bins_head_bwd_pixel_kernel(const T* __restrict__ x, const float* __restrict__ w,
+bins_head_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ w,
                            const float* __restrict__ b, const float* __restrict__ c,
-                           const float* __restrict__ g, T* __restrict__ dx,
+                           const float* __restrict__ g, float* __restrict__ dx,
                            float* __restrict__ stats, float* __restrict__ part_db,
                            float* __restrict__ part_dc, int batch, int hw, int n_bins) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ float4 smem[];
   float* w_s = reinterpret_cast<float*>(smem);   // [kBinsPerChunk][kChannels]
   float* b_s = w_s + kBinsPerChunk * kChannels;  // [kBinsPerChunk]
@@ -246,10 +363,10 @@ bins_head_bwd_pixel_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const bool live = pix < hw;
 
   float xr[kHalf];
-  const T* xp = x + ((size_t)img * kChannels + half * kHalf) * hw + (live ? pix : 0);
+  const float* xp = x + ((size_t)img * kChannels + half * kHalf) * hw + (live ? pix : 0);
 #pragma unroll
   for (int ch = 0; ch < kHalf; ++ch) {
-    xr[ch] = live ? to_float(xp[(size_t)ch * hw]) : 0.f;
+    xr[ch] = live ? xp[(size_t)ch * hw] : 0.f;
   }
   const float gv = live ? g[(size_t)img * hw + pix] : 0.f;
   const float* c_img = c + (size_t)img * n_bins;
@@ -257,11 +374,10 @@ bins_head_bwd_pixel_kernel(const T* __restrict__ x, const float* __restrict__ w,
   auto stage = [&](int n0, int nb) {
     __syncthreads();  // every thread is done with the previous chunk
     for (int i = threadIdx.x; i < nb * kChannels; i += blockDim.x) {
-      const float v = w[(size_t)n0 * kChannels + i];
-      w_s[i] = kBf16 ? round_bf16(v) : v;
+      w_s[i] = w[(size_t)n0 * kChannels + i];
     }
     for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-      b_s[i] = kBf16 ? round_bf16(b[n0 + i]) : b[n0 + i];
+      b_s[i] = b[n0 + i];
       c_s[i] = c_img[n0 + i];
       db_s[i] = 0.f;
       dc_s[i] = 0.f;
@@ -276,7 +392,7 @@ bins_head_bwd_pixel_kernel(const T* __restrict__ x, const float* __restrict__ w,
     stage(n0, nb);
     for (int n = 0; n < nb; ++n) {
       const float4* w_row = reinterpret_cast<const float4*>(w_s + n * kChannels + half * kHalf);
-      const float logit = pair_logit<kBf16>(half_dot(w_row, xr), b_s[n]);
+      const float logit = pair_logit(half_dot(w_row, xr), b_s[n]);
       if (logit > run_max) {
         const float scale = expf(run_max - logit);
         run_sum *= scale;
@@ -300,11 +416,10 @@ bins_head_bwd_pixel_kernel(const T* __restrict__ x, const float* __restrict__ w,
     stage(n0, nb);
     for (int n = 0; n < nb; ++n) {
       const float4* w_row = reinterpret_cast<const float4*>(w_s + n * kChannels + half * kHalf);
-      const float logit = pair_logit<kBf16>(half_dot(w_row, xr), b_s[n]);
+      const float logit = pair_logit(half_dot(w_row, xr), b_s[n]);
       const float pg = expf(logit - run_max) / run_sum * gv;
       const float dlog = pg * (c_s[n] - depth);
-      const float dlog_c = kBf16 ? round_bf16(dlog) : dlog;
-      half_axpy(dlog_c, w_row, dxr);
+      half_axpy(dlog, w_row, dxr);
       // lanes 0-15 sum p g (for dc), lanes 16-31 dlog (for db), over the
       // warp's 16 pixels
       float v = half ? dlog : pg;
@@ -322,11 +437,9 @@ bins_head_bwd_pixel_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 
   if (live) {
-    T* dxp = dx + ((size_t)img * kChannels + half * kHalf) * hw + pix;
+    float* dxp = dx + ((size_t)img * kChannels + half * kHalf) * hw + pix;
 #pragma unroll
-    for (int ch = 0; ch < kHalf; ++ch) {
-      dxp[(size_t)ch * hw] = to_storage(dxr[ch], static_cast<T*>(nullptr));
-    }
+    for (int ch = 0; ch < kHalf; ++ch) dxp[(size_t)ch * hw] = dxr[ch];
     if (half == 0) {
       const size_t plane = (size_t)batch * hw;
       const size_t at = (size_t)img * hw + pix;
@@ -337,13 +450,11 @@ bins_head_bwd_pixel_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kBinsPerBlockDw * 2)
-bins_head_bwd_weight_kernel(const T* __restrict__ x, const float* __restrict__ w,
+bins_head_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ w,
                             const float* __restrict__ b, const float* __restrict__ c,
                             const float* __restrict__ g, const float* __restrict__ stats,
                             float* __restrict__ part_dw, int batch, int hw, int n_bins) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   __shared__ __align__(16) float x_s[kPixStage * kStageRow];
   __shared__ float max_s[kPixStage], sum_s[kPixStage], depth_s[kPixStage], g_s[kPixStage];
 
@@ -355,15 +466,15 @@ bins_head_bwd_weight_kernel(const T* __restrict__ x, const float* __restrict__ w
   float wr[kHalf];
   const float* w_row = w + (size_t)bin * kChannels + half * kHalf;
 #pragma unroll
-  for (int ch = 0; ch < kHalf; ++ch) wr[ch] = kBf16 ? round_bf16(w_row[ch]) : w_row[ch];
-  const float bias = kBf16 ? round_bf16(b[bin]) : b[bin];
+  for (int ch = 0; ch < kHalf; ++ch) wr[ch] = w_row[ch];
+  const float bias = b[bin];
   const float center = c[(size_t)img * n_bins + bin];
   float acc[kHalf];
 #pragma unroll
   for (int ch = 0; ch < kHalf; ++ch) acc[ch] = 0.f;
 
   const size_t plane = (size_t)batch * hw;
-  const T* x_img = x + (size_t)img * kChannels * hw;
+  const float* x_img = x + (size_t)img * kChannels * hw;
   const int begin = blockIdx.x * kPixPerBlockDw;
   const int end = min(hw, begin + kPixPerBlockDw);
   for (int p0 = begin; p0 < end; p0 += kPixStage) {
@@ -371,7 +482,7 @@ bins_head_bwd_weight_kernel(const T* __restrict__ x, const float* __restrict__ w
     __syncthreads();  // every thread is done with the previous pixels
     for (int i = threadIdx.x; i < kPixStage * kChannels; i += blockDim.x) {
       const int ch = i / kPixStage, j = i % kPixStage;
-      const float v = j < count ? to_float(x_img[(size_t)ch * hw + p0 + j]) : 0.f;
+      const float v = j < count ? x_img[(size_t)ch * hw + p0 + j] : 0.f;
       x_s[j * kStageRow + (ch / kHalf) * (kHalf + 4) + ch % kHalf] = v;
     }
     for (int j = threadIdx.x; j < count; j += blockDim.x) {
@@ -384,11 +495,10 @@ bins_head_bwd_weight_kernel(const T* __restrict__ x, const float* __restrict__ w
     __syncthreads();
     for (int j = 0; j < count; ++j) {
       const float4* xj = reinterpret_cast<const float4*>(x_s + j * kStageRow + half * (kHalf + 4));
-      const float logit = pair_logit<kBf16>(half_dot(xj, wr), bias);
+      const float logit = pair_logit(half_dot(xj, wr), bias);
       const float pg = expf(logit - max_s[j]) / sum_s[j] * g_s[j];
       const float dlog = pg * (center - depth_s[j]);
-      const float dlog_c = kBf16 ? round_bf16(dlog) : dlog;
-      half_axpy(dlog_c, xj, acc);
+      half_axpy(dlog, xj, acc);
     }
   }
 
@@ -398,81 +508,63 @@ bins_head_bwd_weight_kernel(const T* __restrict__ x, const float* __restrict__ w
   for (int ch = 0; ch < kHalf; ++ch) out[ch] = acc[ch];
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* x, const float* w, const float* b, const float* c,
-                       const float* g, void* dx, float* stats, float* part_db,
-                       float* part_dc, float* part_dw, int batch, int hw, int n_bins,
-                       cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(bins_head_bwd_pixel_kernel<T>,
+cudaError_t launch_bwd(const float* x, const float* w, const float* b, const float* c,
+                       const float* g, float* dx, float* stats, float* part_db, float* part_dc,
+                       float* part_dw, int batch, int hw, int n_bins, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(bins_head_bwd_pixel_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmemBwd);
   if (err != cudaSuccess) return err;
   const dim3 grid1((hw + kPixPerBlockBwd - 1) / kPixPerBlockBwd, batch);
-  bins_head_bwd_pixel_kernel<T><<<grid1, kPixPerBlockBwd * 2, kSmemBwd, stream>>>(
-      static_cast<const T*>(x), w, b, c, g, static_cast<T*>(dx), stats, part_db, part_dc,
-      batch, hw, n_bins);
+  bins_head_bwd_pixel_kernel<<<grid1, kPixPerBlockBwd * 2, kSmemBwd, stream>>>(
+      x, w, b, c, g, dx, stats, part_db, part_dc, batch, hw, n_bins);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid2((hw + kPixPerBlockDw - 1) / kPixPerBlockDw, n_bins / kBinsPerBlockDw,
                    batch);
-  bins_head_bwd_weight_kernel<T><<<grid2, kBinsPerBlockDw * 2, 0, stream>>>(
-      static_cast<const T*>(x), w, b, c, g, stats, part_dw, batch, hw, n_bins);
+  bins_head_bwd_weight_kernel<<<grid2, kBinsPerBlockDw * 2, 0, stream>>>(
+      x, w, b, c, g, stats, part_dw, batch, hw, n_bins);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (batch, 128, hw) f32 or bf16; w: (n_bins, 128) f32; b: (n_bins,) f32;
-// c: (batch, n_bins) f32; out: (batch, hw) f32. All contiguous, on `device`,
-// whose stream `stream` is. Returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int mde_bins_head_fwd(const void* x, int x_is_bf16, const void* w,
-                                 const void* b, const void* c, void* out, int batch,
-                                 int hw, int n_bins, int device, void* stream) {
+// x: (batch, 128, hw) f32; w: (n_bins, 128) f32; b: (n_bins,) f32;
+// c: (batch, n_bins) f32; out: (batch, hw) f32. n_bins is a multiple of 128.
+// All contiguous, on `device`, whose stream `stream` is. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int mde_bins_head_fwd(const void* x, const void* w, const void* b, const void* c,
+                                 void* out, int batch, int hw, int n_bins, int device,
+                                 void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  const float* cf = static_cast<const float*>(c);
-  float* of = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      x_is_bf16 ? launch<__nv_bfloat16>(x, wf, bf, cf, of, batch, hw, n_bins, s)
-                : launch<float>(x, wf, bf, cf, of, batch, hw, n_bins, s);
-  return (int)err;
+  return (int)launch(static_cast<const float*>(x), static_cast<const float*>(w),
+                     static_cast<const float*>(b), static_cast<const float*>(c),
+                     static_cast<float*>(out), batch, hw, n_bins,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mde_bins_head_bwd_pixels_per_block() { return kPixPerBlockBwd; }
 extern "C" int mde_bins_head_bwd_weight_pixels_per_block() { return kPixPerBlockDw; }
 
-// x: (batch, 128, hw) f32 or bf16; w: (n_bins, 128) f32; b: (n_bins,) f32;
+// x: (batch, 128, hw) f32; w: (n_bins, 128) f32; b: (n_bins,) f32;
 // c: (batch, n_bins) f32; g: (batch, hw) f32, the gradient of the depth.
-// Writes dx: (batch, 128, hw) in x's type; stats: (3, batch, hw) f32 scratch;
+// Writes dx: (batch, 128, hw) f32; stats: (3, batch, hw) f32 scratch;
 // part_db, part_dc: (batch, ceil(hw / 64), n_bins) f32 partials;
 // part_dw: (batch, ceil(hw / 2048), n_bins, 128) f32 partials. n_bins is a
 // multiple of 64. All contiguous, on `device`, whose stream `stream` is.
 // Returns the cudaError_t of the launches (0 on success).
-extern "C" int mde_bins_head_bwd(const void* x, int x_is_bf16, const void* w, const void* b,
-                                 const void* c, const void* g, void* dx, void* stats,
-                                 void* part_db, void* part_dc, void* part_dw, int batch,
-                                 int hw, int n_bins, int device, void* stream) {
+extern "C" int mde_bins_head_bwd(const void* x, const void* w, const void* b, const void* c,
+                                 const void* g, void* dx, void* stats, void* part_db,
+                                 void* part_dc, void* part_dw, int batch, int hw, int n_bins,
+                                 int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  const float* cf = static_cast<const float*>(c);
-  const float* gf = static_cast<const float*>(g);
-  float* sf = static_cast<float*>(stats);
-  float* dbf = static_cast<float*>(part_db);
-  float* dcf = static_cast<float*>(part_dc);
-  float* dwf = static_cast<float*>(part_dw);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      x_is_bf16 ? launch_bwd<__nv_bfloat16>(x, wf, bf, cf, gf, dx, sf, dbf, dcf, dwf, batch,
-                                            hw, n_bins, s)
-                : launch_bwd<float>(x, wf, bf, cf, gf, dx, sf, dbf, dcf, dwf, batch, hw,
-                                    n_bins, s);
-  return (int)err;
+  return (int)launch_bwd(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<const float*>(g), static_cast<float*>(dx),
+      static_cast<float*>(stats), static_cast<float*>(part_db), static_cast<float*>(part_dc),
+      static_cast<float*>(part_dw), batch, hw, n_bins, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mde_cuda_error_string(int err) {

@@ -10,7 +10,8 @@ kernel family: float32 goes to the CUDA-core kernels of `csrc/bins_head.cu`,
 bfloat16 to the tensor-core kernels of `csrc/bins_head_tc.cu`, whose forward
 also saves each pixel's softmax (max, sum) for its backward. For CPU tensors
 it runs `fused_bins_head_reference`, the plain PyTorch version with the same
-bf16 rounding points, and autograd differentiates that. There is no fallback
+bf16 rounding points: autograd differentiates it in f32, and in bf16
+`PlainBf16Head` gives the JAX kernel's gradients. There is no fallback
 between the three: a CUDA tensor the kernels cannot take raises.
 
 The model (models/unet_adaptive_bins.py) takes this path only where
@@ -56,23 +57,49 @@ def fused_bins_head_reference(features_nchw: torch.Tensor, weight: torch.Tensor,
 
     With bf16 features the logits are accumulated in f32 from bf16 operands,
     rounded to bf16, the bf16 bias is added in bf16, and the softmax runs in
-    f32 — the rounding points of the JAX kernel and its test reference.
-    Autocast is off inside, so these points hold under it too.
+    f32 — the rounding points of the JAX kernel and its test reference. The
+    gradients are `_bwd_kernel`'s (`PlainBf16Head`): W and b are rounded to
+    bf16 in the forward only, and dW, db and dcenters come back in f32. f32
+    features take plain autograd. Autocast is off inside, so these points
+    hold under it too.
     """
     with torch.autocast(features_nchw.device.type, enabled=False):
-        return _reference(features_nchw, weight, bias, centers)
+        if features_nchw.dtype == torch.bfloat16:
+            return PlainBf16Head.apply(features_nchw, weight, bias, centers)
+        logits = torch.einsum("bchw,nc->bnhw", features_nchw.float(),
+                              weight.reshape(weight.shape[0], -1).float())
+        probs = torch.softmax(logits + bias.float()[:, None, None], dim=1)
+        return depth_from_bins(probs, centers.float())
 
 
-def _reference(features_nchw, weight, bias, centers):
-    x = features_nchw
-    w = weight.reshape(weight.shape[0], -1).to(x.dtype).float()
-    logits = torch.einsum("bchw,nc->bnhw", x.float(), w)
-    if x.dtype == torch.bfloat16:
-        logits = (logits.to(torch.bfloat16) + bias.to(torch.bfloat16)[:, None, None]).float()
-    else:
-        logits = logits + bias.float()[:, None, None]
-    probs = torch.softmax(logits, dim=1)
-    return depth_from_bins(probs, centers.float())
+class PlainBf16Head(torch.autograd.Function):
+    """The plain bf16 head with the gradients of the JAX kernel's
+    `_bwd_kernel` (mde_tpu/kernels/bins_head.py:99-116): dlog = p (c - depth)
+    g in f32, rounded to bf16 before both products, which sum in f32; dx
+    rounded to bf16; dW = sum bf16(dlog) x^T, db = sum dlog and dcenters =
+    sum p g returned in f32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, centers):
+        w = weight.reshape(weight.shape[0], -1).to(torch.bfloat16).float()
+        logits = torch.einsum("bchw,nc->bnhw", x.float(), w)
+        logits = logits.to(torch.bfloat16) + bias.to(torch.bfloat16)[:, None, None]
+        probs = torch.softmax(logits.float(), dim=1)
+        depth = depth_from_bins(probs, centers.float())
+        ctx.save_for_backward(x, weight, centers, probs, depth)
+        return depth
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, centers, probs, depth = ctx.saved_tensors
+        with torch.autocast(x.device.type, enabled=False):
+            pg = probs * grad.float()
+            dlog = pg * (centers.float()[:, :, None, None] - depth)
+            dlog_bf16 = dlog.to(torch.bfloat16).float()
+            w = weight.reshape(weight.shape[0], -1).to(torch.bfloat16).float()
+            dx = torch.einsum("bnhw,nc->bchw", dlog_bf16, w).to(x.dtype)
+            dw = torch.einsum("bnhw,bchw->nc", dlog_bf16, x.float())
+            return dx, dw.reshape(weight.shape), dlog.sum(dim=(0, 2, 3)), pg.sum(dim=(2, 3))
 
 
 def _check(features, weight, bias, centers):
@@ -152,22 +179,16 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load(_SOURCE)
-        lib.mde_bins_head_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.mde_bins_head_fwd.restype = ctypes.c_int
-        lib.mde_bins_head_bwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.mde_bins_head_bwd.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mde_bins_head_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.mde_bins_head_fwd.restype = i32
+        lib.mde_bins_head_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
+        lib.mde_bins_head_bwd.restype = i32
         for fn in (lib.mde_bins_head_bwd_pixels_per_block,
                    lib.mde_bins_head_bwd_weight_pixels_per_block):
             fn.argtypes = []
-            fn.restype = ctypes.c_int
-        lib.mde_cuda_error_string.argtypes = [ctypes.c_int]
+            fn.restype = i32
+        lib.mde_cuda_error_string.argtypes = [i32]
         lib.mde_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
@@ -204,9 +225,8 @@ def _launch(x, weight, bias, centers):
     out = torch.empty((b, 1, h, w), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.mde_bins_head_fwd(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), weight.data_ptr(),
-        bias.data_ptr(), centers.data_ptr(), out.data_ptr(), b, h * w,
-        weight.shape[0], x.device.index, stream)
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), centers.data_ptr(),
+        out.data_ptr(), b, h * w, weight.shape[0], x.device.index, stream)
     _raise_on(lib, err, "bins-head")
     LAUNCHES += 1
     return out
@@ -229,10 +249,9 @@ def _launch_bwd(x, weight, bias, centers, grad):
                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.mde_bins_head_bwd(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), weight.data_ptr(),
-        bias.data_ptr(), centers.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        stats.data_ptr(), part_dbc[0].data_ptr(), part_dbc[1].data_ptr(),
-        part_dw.data_ptr(), b, hw, n, x.device.index, stream)
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), centers.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), stats.data_ptr(), part_dbc[0].data_ptr(),
+        part_dbc[1].data_ptr(), part_dw.data_ptr(), b, hw, n, x.device.index, stream)
     _raise_on(lib, err, "bins-head backward")
     BWD_LAUNCHES += 2
     return dx, part_dw.sum(dim=(0, 1)), part_dbc[0].sum(dim=(0, 1)), part_dbc[1].sum(dim=1)
