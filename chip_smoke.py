@@ -16,8 +16,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      (CUDA-core kernels) and bfloat16 (tensor-core kernels), the float32
      forward's share of its bound at both shapes; the bf16 kernels again at
      1,024 bins, where W goes through shared memory in chunks; the chamfer
-     reductions, loss and gradient at (16 images of 416x544 pixels, 256
-     bins); and, as yardsticks of the card's rates, two cuBLAS products of
+     reductions at (16 images of 416x544 pixels, 256 bins) on uniform noise
+     and on a smooth millimetre-quantized map, each timed with its share of
+     the bound, and the loss and gradient on the noise; and, as yardsticks of the card's rates, two cuBLAS products of
      the head's sizes (bf16 at the training shape, float32 with TF32 off at
      the serving shape), which the port never calls
   4. the serving path: InferenceHelper (EfficientNet-B1, 256 bins, seeded
@@ -301,23 +302,60 @@ def cublas_yardstick(gen):
         del a, b
 
 
-def check_chamfer(chamfer, gen):
-    """The chamfer kernel against its plain version at the flagship shape."""
-    from mde_tpu_torch.ops.losses import bins_chamfer_loss
-    edges, centers = centers_from(torch.rand((TRAIN_BATCH, N_BINS), generator=gen))
-    depth = 0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)
-    edges, centers, depth = edges.cuda(), centers.cuda(), depth.cuda()
-    flat = depth.reshape(TRAIN_BATCH, -1)
+def smooth_depth(b, h, w, gen):
+    """A tilted plane per image from 0.5 to 9.5 m in whole millimetres (NYU's
+    ground truth is stored in mm), with a block of invalid zeros: neighbouring
+    pixels share a depth and a nearest bin (tests/test_torch_port_cuda.py)."""
+    a = torch.rand((b, 1, 1), generator=gen)
+    y = torch.linspace(0, 1, h)[None, :, None]
+    x = torch.linspace(0, 1, w)[None, None, :]
+    depth = torch.round(1000 * (0.5 + 9.0 * (a * x + (1 - a) * y))) / 1000
+    depth[:, h // 4:h // 4 + 64, w // 3:w // 3 + 128] = 0.0
+    return depth[:, None]
+
+
+def check_chamfer_reductions(chamfer, centers, depth, label):
+    """The reductions kernel against its plain version on one depth map;
+    returns its stats. The function's work: per (bin, valid pixel) pair one
+    squared distance (a subtract and a multiply), then about 4 compares and
+    selects for the per-pixel min with its tie count and the per-bin min
+    with its depth."""
+    flat = depth.reshape(depth.shape[0], -1)
     want = chamfer.chamfer_reductions_reference(centers, flat)
     got = chamfer.chamfer_reductions(centers, flat)
     torch.cuda.synchronize()
     abs_err = 0.0
     for name, g, r in zip(("min", "nearest", "count", "depth_sum", "y_min"), got, want):
         abs_err = max(abs_err, (g - r).abs().max().item())
-        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6, msg=name)
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6, msg=f"{label} {name}")
     ms = cuda_ms(lambda: chamfer.chamfer_reductions(centers, flat), iters=10)
     plain_ms = cuda_ms(lambda: chamfer.chamfer_reductions_reference(centers, flat),
                        iters=3, warmup=1)
+    valid = int((flat >= 1e-3).sum())
+    ops = 6 * centers.shape[1] * valid
+    nbytes = 2 * flat.numel() * 4 + centers.numel() * 4
+    least = bound(ops, F32_OPS, nbytes)
+    print(f"chamfer reductions, {label} ({flat.shape[0]} x {TRAIN_HW[0]}x{TRAIN_HW[1]} pixels, "
+          f"{valid} valid, {centers.shape[1]} bins): max_abs_err {abs_err:.3e} (rtol 1e-5, "
+          f"atol 1e-6); kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+          f"{least['bound_ms']:.4f} ms ({least['bound_by']}), "
+          f"{100 * least['bound_ms'] / ms:.1f}% of the bound")
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **least}
+
+
+def check_chamfer(chamfer, gen):
+    """The chamfer kernel against its plain version at the flagship shape,
+    on uniform noise (the training step's synthetic GT, and the kernels
+    line's row) and on a smooth millimetre-quantized map; the loss and its
+    gradient on the noise."""
+    from mde_tpu_torch.ops.losses import bins_chamfer_loss
+    edges, centers = centers_from(torch.rand((TRAIN_BATCH, N_BINS), generator=gen))
+    depth = 0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)
+    edges, centers, depth = edges.cuda(), centers.cuda(), depth.cuda()
+    stats = check_chamfer_reductions(chamfer, centers, depth, "noise")
+    # its own generator, so that the later phases draw what they drew before
+    smooth = smooth_depth(TRAIN_BATCH, *TRAIN_HW, torch.Generator().manual_seed(SEED + 1))
+    check_chamfer_reductions(chamfer, centers, smooth.cuda(), "smooth mm map")
 
     # loss and gradient: the kernel's entry against the plain chunked loss
     # (value) and against the same entry on the CPU, where it runs the plain
@@ -330,21 +368,13 @@ def check_chamfer(chamfer, gen):
     cpu_value = chamfer.chamfer_1d(e_cpu, depth.cpu())
     cpu_value.backward()
     grad_rel = max_rel(e.grad.cpu(), e_cpu.grad)
-    print(f"chamfer ({TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]} pixels, {N_BINS} bins): "
-          f"reductions max_abs_err {abs_err:.3e} (rtol 1e-5, atol 1e-6); loss kernel "
-          f"{value.item():.7e} plain {plain_value.item():.7e} (rtol 1e-5); gradient to "
-          f"the edges vs the CPU plain reductions {grad_rel:.3e} of the largest value "
-          f"(tolerance 1e-4); kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    print(f"chamfer loss ({TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]} pixels, {N_BINS} bins, "
+          f"noise): kernel {value.item():.7e} plain {plain_value.item():.7e} (rtol 1e-5); "
+          f"gradient to the edges vs the CPU plain reductions {grad_rel:.3e} of the largest "
+          f"value (tolerance 1e-4)")
     torch.testing.assert_close(value, plain_value, rtol=1e-5, atol=1e-7)
     check(grad_rel <= 1e-4, f"chamfer gradient {grad_rel:.3e} > 1e-4")
-    # the function's work: per (bin, valid pixel) pair one squared distance
-    # (a subtract and a multiply), then about 4 compares and selects for the
-    # per-pixel min with its tie count and the per-bin min with its depth
-    valid = int((flat >= 1e-3).sum())
-    ops = 6 * N_BINS * valid
-    nbytes = 2 * flat.numel() * 4 + centers.numel() * 4
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            **bound(ops, F32_OPS, nbytes)}
+    return stats
 
 
 def seeded_state_dict(model, gen):

@@ -5,7 +5,11 @@
 for CUDA tensors; it replaces the Pallas TPU kernel `_chamfer_kernel`. For
 CPU tensors it runs `chamfer_reductions_reference`, the plain PyTorch version
 with the same outputs. There is no fallback between the two: a CUDA tensor the
-kernel cannot take raises.
+kernel cannot take raises. Up to 256 bins the kernel keeps each lane's bins in
+registers (1, 2, 4 or 8 a lane) and forms each (bin, pixel) distance once for
+both reductions; from 257 to `_MAX_BINS` bins it runs the first port's
+kernel, which forms each distance twice. Both write per-tile partials
+(`mde_chamfer_tile_pixels(p)` pixels a tile), which `_launch` folds.
 
 `ChamferFromCenters` is an autograd.Function over those reductions: its
 forward forms the loss (`_chamfer_fwd`, chamfer.py:171-186) and its backward
@@ -29,7 +33,8 @@ from . import build
 
 _BIG = 3.4e38  # "no valid pixel", as in mde_tpu/kernels/chamfer.py
 _SOURCE = "chamfer.cu"
-_MAX_BINS = 2048  # keeps the block's shared memory under 48 KB
+_MAX_BINS = 2048  # above 256 bins the kernel stages the centres, counts and depth
+                  # sums in shared memory beside a 4,096-pixel tile: 40 KB at 2,048
 _LIB = None
 
 # Kernel launches since the last reset; only the CUDA path adds to it.
@@ -94,7 +99,7 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load(_SOURCE)
-        lib.mde_chamfer_tile_pixels.argtypes = []
+        lib.mde_chamfer_tile_pixels.argtypes = [ctypes.c_int]
         lib.mde_chamfer_tile_pixels.restype = ctypes.c_int
         lib.mde_chamfer_reductions.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -112,7 +117,7 @@ def _launch(centers, depth, valid_threshold):
     lib = library()
     n, p = centers.shape
     m = depth.shape[1]
-    tile = lib.mde_chamfer_tile_pixels()
+    tile = lib.mde_chamfer_tile_pixels(p)
     tiles = -(-m // tile)
     parts = torch.empty((4, n, tiles, p), dtype=torch.float32, device=centers.device)
     y_min = torch.empty_like(depth)

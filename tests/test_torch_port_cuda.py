@@ -17,7 +17,13 @@ pixels, taken by the kernel in per-block partials and by autograd in another
 order) and, in bfloat16 (the same rounding points, other orders), 2e-2 for
 dx and dcenters and 1e-3 for dW and db (`GRAD_TOL`).
 The chamfer value and centre gradient are held at rtol 1e-5 / 1e-4, as
-tests/test_kernels.py holds the Pallas kernel.
+tests/test_kernels.py holds the Pallas kernel. The chamfer reductions are
+held at rtol 1e-5, atol 1e-6: min, nearest depth and y_min are the same
+float32 squared distances picked by the same rule, and count and depth sum
+are float32 sums taken in another order (the kernel sums per warp and per
+tile). On exact dyadic inputs every squared distance and every count (sums
+of 1 and 1/2) is exact in float32, so there min, nearest, count and y_min
+must be equal (rtol = atol = 0) and only the depth sum keeps 1e-5.
 """
 
 import pytest
@@ -223,22 +229,98 @@ def _chamfer_inputs(device, b, hw, p, seed=7):
     return edges.to(device), depth.to(device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,hw,p", [(2, (24, 32), 16), (3, (33, 49), 256),
-                                    (2, (416, 544), 256), (1, (7, 9), 256)])
-def test_chamfer_kernel_reductions_match_plain(cuda, b, hw, p):
-    """The five outputs, on tie-free random depths; ragged pixel counts
-    (1617, 63) and more than one tile (226,304 pixels) included."""
-    edges, depth = _chamfer_inputs(cuda, b, hw, p)
-    centers = 0.5 * (edges[:, 1:] + edges[:, :-1])
-    flat = depth.reshape(b, -1)
-    want = chamfer.chamfer_reductions_reference(centers, flat)
+def _assert_reductions_match_plain(centers, flat, exact=False):
+    """The kernel's five outputs against the plain version's: exact where
+    `exact` (all but the depth sum), else at rtol 1e-5, atol 1e-6."""
+    want = chamfer.chamfer_reductions_reference(centers.cpu(), flat.cpu())
     before = chamfer.LAUNCHES
     got = chamfer.chamfer_reductions(centers, flat)
     torch.cuda.synchronize()
     assert chamfer.LAUNCHES == before + 1
     for name, g, r in zip(("min", "nearest", "count", "depth_sum", "y_min"), got, want):
-        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6, msg=name)
+        tol = (0.0, 0.0) if exact and name != "depth_sum" else (1e-5, 1e-6)
+        torch.testing.assert_close(g.cpu(), r, rtol=tol[0], atol=tol[1], msg=name)
+    return [g.cpu() for g in got]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,p", [(2, (24, 32), 16), (3, (33, 49), 256),
+                                    (2, (416, 544), 256), (1, (7, 9), 256),
+                                    (2, (24, 32), 1), (3, (33, 49), 33),
+                                    (2, (64, 80), 257), (1, (24, 40), 2048)])
+def test_chamfer_kernel_reductions_match_plain(cuda, b, hw, p):
+    """The five outputs, on tie-free random depths; ragged pixel counts
+    (1617, 63) and more than one tile (226,304 pixels) included; 1, 16 and
+    33 bins leave lanes and bins of a lane padded; 257 (two tiles of 5,120
+    pixels) and 2,048 bins take the kernel for more than 256 bins."""
+    edges, depth = _chamfer_inputs(cuda, b, hw, p)
+    centers = 0.5 * (edges[:, 1:] + edges[:, :-1])
+    _assert_reductions_match_plain(centers, depth.reshape(b, -1))
+
+
+def smooth_depth(b, h, w, seed):
+    """A tilted plane per image from 0.5 to 9.5 m, in whole millimetres (as
+    NYU's ground truth, stored in mm), with a block of invalid zeros: many
+    neighbouring pixels share a depth and a nearest bin."""
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.rand((b, 1, 1), generator=gen)
+    y = torch.linspace(0, 1, h)[None, :, None]
+    x = torch.linspace(0, 1, w)[None, None, :]
+    depth = torch.round(1000 * (0.5 + 9.0 * (a * x + (1 - a) * y))) / 1000
+    depth[:, h // 4:h // 4 + 64, w // 3:w // 3 + 128] = 0.0
+    return depth[:, None]
+
+
+@pytest.mark.cuda
+def test_chamfer_kernel_smooth_millimetre_depth_matches_plain(cuda):
+    """The flagship shape (16 x 416x544, 256 bins) on smooth mm-quantized
+    planes with a block of invalid zeros."""
+    edges, _ = _chamfer_inputs(cuda, 16, (8, 8), 256, seed=9)
+    centers = 0.5 * (edges[:, 1:] + edges[:, :-1])
+    depth = smooth_depth(16, 416, 544, seed=10).to(cuda)
+    got = _assert_reductions_match_plain(centers, depth.reshape(16, -1))
+    assert (got[4] == 0).any() and (got[2] > 100).any()  # invalid block; shared bins
+
+
+@pytest.mark.cuda
+def test_chamfer_kernel_exact_ties_match_plain(cuda):
+    """Dyadic inputs with exact ties, equal to the plain version bit for bit
+    (depth sum at 1e-5). Centres 1 + k/2 (k < 256) in a seeded order, so
+    that some bins of equal spacing share a lane (bins b and b + 32k) and
+    others do not. Images 0 and 1: only pairs of depths c - 1/16 and
+    c + 1/16 around 24 bins, the pair in one tile half a tile apart (two
+    warps' slices) or whole tiles apart, c - 1/16 first in image 0 and
+    c + 1/16 first in image 1: the bin's nearest depth is the lower
+    index's. Image 2: depths on the 1/4 grid, so that every pixel lies on a
+    centre or halfway between two (count 1/2 to each), and 10 % invalid."""
+    p = 256
+    tile = chamfer.library().mde_chamfer_tile_pixels(p)
+    gen = torch.Generator().manual_seed(13)
+    order = torch.randperm(p, generator=gen)
+    centers = (1 + 0.5 * order.float())[None].repeat(3, 1)
+    where = torch.argsort(order)  # where[k]: the bin of centre 1 + k/2
+    assert ((where[1:] - where[:-1]) % 32 == 0).any()
+    assert ((where[1:] - where[:-1]) % 32 != 0).any()
+    m = 3 * tile + 517
+    depth = torch.zeros((3, m))
+    pairs = []
+    for j in range(24):
+        b = 10 * j + 3
+        lo = 37 * j + 5
+        hi = lo + (tile // 2 if j % 2 else (1 + j // 2 % 2) * tile)
+        c = centers[0, b].item()
+        depth[0, lo], depth[0, hi] = c - 1 / 16, c + 1 / 16
+        depth[1, lo], depth[1, hi] = c + 1 / 16, c - 1 / 16
+        pairs.append(b)
+    grid = 1 + 0.25 * torch.randint(0, 2 * p - 1, (m,), generator=gen).float()
+    depth[2] = torch.where(torch.rand(m, generator=gen) < 0.1, 0.0, grid)
+    got = _assert_reductions_match_plain(centers.to(cuda), depth.to(cuda), exact=True)
+    min_pb, near = got[0], got[1]
+    for b in pairs:
+        c = centers[0, b].item()
+        assert min_pb[0, b] == min_pb[1, b] == 1 / 256
+        assert near[0, b] == c - 1 / 16 and near[1, b] == c + 1 / 16
+    assert ((2 * got[2][2]) % 2 == 1).any()  # half counts from split pixels
 
 
 @pytest.mark.cuda
