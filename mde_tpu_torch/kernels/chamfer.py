@@ -6,7 +6,7 @@ for CUDA tensors; it replaces the Pallas TPU kernel `_chamfer_kernel`. For
 CPU tensors it runs `chamfer_reductions_reference`, the plain PyTorch version
 with the same outputs. There is no fallback between the two: a CUDA tensor the
 kernel cannot take raises. Up to 256 bins the kernel keeps each lane's bins in
-registers (1, 2, 4 or 8 a lane) and forms each (bin, pixel) distance once for
+registers (4 or 8 a lane) and forms each (bin, pixel) distance once for
 both reductions; from 257 to `_MAX_BINS` bins it runs the first port's
 kernel, which forms each distance twice. Both write per-tile partials
 (`mde_chamfer_tile_pixels(p)` pixels a tile), which `_launch` folds.

@@ -324,6 +324,29 @@ def test_chamfer_kernel_exact_ties_match_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_chamfer_kernel_tie_weights_exact(cuda):
+    """One valid pixel an image, at the same distance from t bins, so that
+    each of them gets exactly 1/t of its count and depth: t = 1 to 256 bins
+    0 .. t-1 (ties across lanes, and inside lanes above 32), and t = 2 to 8
+    bins 0, 32, 64, ... (ties inside one lane's bins). Every output equals
+    the plain version's bit for bit."""
+    p, m = 256, 40
+    sets = [list(range(t)) for t in range(1, p + 1)] + [list(range(0, 32 * t, 32))
+                                                        for t in range(2, 9)]
+    centers = torch.full((len(sets), p), 100.0) + torch.arange(p).float()
+    depth = torch.zeros((len(sets), m))
+    for i, bins in enumerate(sets):
+        centers[i, bins] = 1.0
+        depth[i, 17] = 1.5
+    got = _assert_reductions_match_plain(centers.to(cuda), depth.to(cuda), exact=True)
+    for i, bins in enumerate(sets):
+        assert torch.all(got[2][i, bins] == 1 / torch.tensor(float(len(bins))))
+    # one term a bin, so the depth sum is exact too
+    torch.testing.assert_close(got[3], chamfer.chamfer_reductions_reference(centers, depth)[3],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ragged", "all_invalid_image", "mixed_valid_counts"])
 def test_chamfer_kernel_loss_and_gradient_match_plain(cuda, case):
     """1617 pixels (not a multiple of the tile); an image with no valid
