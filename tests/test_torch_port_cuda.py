@@ -20,8 +20,8 @@ The chamfer value and centre gradient are held at rtol 1e-5 / 1e-4, as
 tests/test_kernels.py holds the Pallas kernel. The chamfer reductions are
 held at rtol 1e-5, atol 1e-6: min, nearest depth and y_min are the same
 float32 squared distances picked by the same rule, and count and depth sum
-are float32 sums taken in another order (the kernel sums per warp and per
-tile). On exact dyadic inputs every squared distance and every count (sums
+are float32 sums taken in another order (the kernel sums runs of pixels,
+then by shared-memory atomics in a block, then over tiles). On exact dyadic inputs every squared distance and every count (sums
 of 1 and 1/2) is exact in float32, so there min, nearest, count and y_min
 must be equal (rtol = atol = 0) and only the depth sum keeps 1e-5.
 """
