@@ -14,7 +14,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      serving shape (B=2, 240x320 pixels) and, with the head backward, at the
      training shape (B=16, 208x272 pixels), 128 channels, 256 bins, float32
      (CUDA-core kernels) and bfloat16 (tensor-core kernels), the float32
-     forward's share of its bound at both shapes; the bf16 kernels again at
+     forward's share of its bound at both shapes (timed also writing the
+     softmax stats a backward reads), the backward's share of its bound,
+     each backward timed from its forward's saved stats; the bf16 kernels again at
      1,024 bins, where W goes through shared memory in chunks; the chamfer
      reductions at (16 images of 416x544 pixels, 256 bins) on uniform noise
      and on a smooth millimetre-quantized map, each timed with its share of
@@ -190,8 +192,12 @@ def check_head_forward(bins_head, gen, b, hw, label):
         flops = 2 * pixels * 128 * n
         nbytes = x.numel() * x.element_size() + pixels * 4
         least = bound(flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS, nbytes)
+        with_stats = ""
+        if dtype == torch.float32:  # as in training, where a backward follows
+            stats_ms = cuda_ms(lambda: bins_head._launch(*args, stats=True))
+            with_stats = f" ({stats_ms:.4f} ms writing the softmax stats for a backward)"
         print(f"head forward {label} {dtype}: max_abs_err {abs_err:.3e} max_rel_err "
-              f"{rel_err:.3e} (tolerance rtol=atol={tol}) kernel {ms:.4f} ms plain "
+              f"{rel_err:.3e} (tolerance rtol=atol={tol}) kernel {ms:.4f} ms{with_stats} plain "
               f"{plain_ms:.4f} ms bound {least['bound_ms']:.4f} ms ({least['bound_by']}), "
               f"{100 * least['bound_ms'] / ms:.1f}% of the bound")
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
@@ -208,8 +214,9 @@ def bound(work, rate, nbytes):
 
 def check_head_backward(bins_head, gen):
     """The backward kernels against autograd through the plain version at
-    the training shape; returns stats per dtype. The bf16 kernels read the
-    forward's (max, sum), so their forward runs once, untimed, first."""
+    the training shape; returns stats per dtype. The backward kernels of
+    both families read the forward's depth and (max, sum), so the forward
+    runs once, untimed, first."""
     stats = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = head_inputs(dtype, gen, TRAIN_BATCH, (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2))
@@ -221,7 +228,8 @@ def check_head_backward(bins_head, gen):
             saved = bins_head._launch_tc(*args)
             backward = lambda: bins_head._launch_tc_bwd(*args, upstream, *saved)
         else:
-            backward = lambda: bins_head._launch_bwd(*args, upstream)
+            saved = bins_head._launch(*args, stats=True)
+            backward = lambda: bins_head._launch_bwd(*args, upstream, *saved)
         got = backward()
         got = (got[0], got[1].reshape(args[1].shape), got[2], got[3])
         torch.cuda.synchronize()
@@ -233,22 +241,22 @@ def check_head_backward(bins_head, gen):
         plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, inputs, upstream,
                                                        retain_graph=True), iters=5, warmup=1)
         tol = GRAD_TOL[dtype]
-        print(f"head backward {dtype} (B={TRAIN_BATCH}, {args[0].shape[2]}x"
-              f"{args[0].shape[3]}, {N_BINS} bins): " + ", ".join(
-                  f"{k} max_abs_err {a:.3e} rel {r:.3e}" for k, (a, r) in errs.items())
-              + f" (tolerance of the largest value: {tol}) kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms")
-        for name, (_, rel) in errs.items():
-            check(rel <= tol[name], f"head backward {dtype} {name}: {rel:.3e} > {tol[name]}")
         x = args[0]
         pixels = x.shape[0] * x.shape[2] * x.shape[3]
         flops = 3 * 2 * pixels * 128 * N_BINS
         nbytes = 2 * x.numel() * x.element_size() + pixels * 4
+        least = bound(flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS, nbytes)
+        print(f"head backward {dtype} (B={TRAIN_BATCH}, {args[0].shape[2]}x"
+              f"{args[0].shape[3]}, {N_BINS} bins): " + ", ".join(
+                  f"{k} max_abs_err {a:.3e} rel {r:.3e}" for k, (a, r) in errs.items())
+              + f" (tolerance of the largest value: {tol}) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms bound {least['bound_ms']:.4f} ms ({least['bound_by']}), "
+              f"{100 * least['bound_ms'] / ms:.1f}% of the bound")
+        for name, (_, rel) in errs.items():
+            check(rel <= tol[name], f"head backward {dtype} {name}: {rel:.3e} > {tol[name]}")
         stats[dtype] = {"max_abs_err": max(a for a, _ in errs.values()), "ms": ms,
-                        "plain_ms": plain_ms,
-                        **bound(flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
-                                nbytes)}
-        del plain_out, inputs, want, got, backward
+                        "plain_ms": plain_ms, **least}
+        del plain_out, inputs, want, got, backward, saved
     return stats
 
 

@@ -27,16 +27,19 @@
 //    W, so it comes from L2. A warp copies 4 bins x 8 channels per
 //    instruction (whole 32-byte sectors of W's rows), and the 132-float rows
 //    of W^T put those 32 stores on 32 banks.
-//  - Each thread accumulates 8 pixels x 8 bins in 64 registers: per channel
-//    two LDS.128 of X and two of W^T feed 64 FMAs. A warp is 4 pixel groups
-//    x 8 bin groups, and a thread's 8 pixels (bins) are two runs of 4 half a
-//    tile apart, so each LDS.128 reads 64 (128) contiguous bytes: one
-//    wavefront, no bank conflict.
+//  - Each thread accumulates 8 pixels x 8 bins in 64 registers (tile_fma):
+//    per channel two LDS.128 of X and two of W^T feed 64 FMAs. A warp is 4
+//    pixel groups x 8 bin groups, and a thread's 8 pixels (bins) are two
+//    runs of 4 half a tile apart, so each LDS.128 reads 64 (128) contiguous
+//    bytes: one wavefront, no bank conflict.
 //  - After each chunk a thread folds its 8 bins into a running (max, sum,
 //    sum e c) for each of its 8 pixels, in registers: no thread talks to
 //    another inside the bin loop, and every bin count that is a multiple of
 //    128 runs. At the end the 16 threads that share a pixel merge their
 //    states through shared memory by the log-sum-exp rule.
+//  - When a backward will follow, the merge also writes each pixel's
+//    softmax max and sum (8 bytes a pixel), which the backward reads instead
+//    of running the softmax again.
 //  - Pixels past hw are zero in the tile and not written. A feature row
 //    moves in 16-byte copies where hw % 4 == 0 and the features are 16-byte
 //    aligned, else element by element into the same layout.
@@ -44,6 +47,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
@@ -95,21 +99,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The block's feature tile, channel rows of kFwdPx pixels from p0.
+// A feature tile of one image, channel rows of kPx pixels from p0, kStride
+// floats apart in shared memory.
+template <int kPx, int kStride>
 __device__ __forceinline__ void load_x_tile(float* xs, const float* x_img, int p0, int hw,
                                             bool vec) {
   if (vec) {  // hw % 4 == 0: a 4-pixel chunk is wholly in or out
-    constexpr int kRowChunks = kFwdPx / 4;
+    constexpr int kRowChunks = kPx / 4;
     for (int i = threadIdx.x; i < kChannels * kRowChunks; i += kFwdThreads) {
-      const int ch = i / kRowChunks, p = p0 + 4 * (i % kRowChunks);
+      const int ch = i / kRowChunks, q = 4 * (i % kRowChunks), p = p0 + q;
       const bool in = p < hw;
-      cp_async16(xs + 4 * i, x_img + (size_t)ch * hw + (in ? p : 0), in ? 16 : 0);
+      cp_async16(xs + ch * kStride + q, x_img + (size_t)ch * hw + (in ? p : 0), in ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < kChannels * kFwdPx; i += kFwdThreads) {
-      const int ch = i / kFwdPx, p = p0 + i % kFwdPx;
+    for (int i = threadIdx.x; i < kChannels * kPx; i += kFwdThreads) {
+      const int ch = i / kPx, q = i % kPx, p = p0 + q;
       const bool in = p < hw;
-      cp_async4(xs + i, x_img + (size_t)ch * hw + (in ? p : 0), in ? 4 : 0);
+      cp_async4(xs + ch * kStride + q, x_img + (size_t)ch * hw + (in ? p : 0), in ? 4 : 0);
     }
   }
 }
@@ -126,10 +132,41 @@ __device__ __forceinline__ void load_wt_slice(float* wt, const float* w, int n0,
   }
 }
 
+// acc[i][j] += sum_k a[k][i'] b[k][j'] over kK rows of two k-major operands
+// in shared memory: the thread's kA result rows are a's columns ia.. (and
+// ib.. when kA is 8), runs of 4; its 8 result columns are b's columns ja..
+// and jb... Every product of this file that forms logits calls it, so the
+// forward and both backward kernels form each logit with the same FMAs in
+// the same order: bit for bit the same value.
+template <int kK, int kA>
+__device__ __forceinline__ void tile_fma(const float* a, int lda, int ia, int ib, const float* b,
+                                         int ldb, int ja, int jb, float (&acc)[kA][8]) {
+  static_assert(kA == 4 || kA == 8, "4 or 8 result rows");
+#pragma unroll 8
+  for (int k = 0; k < kK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + k * lda + ia);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + k * ldb + ja);
+    const float4 b1 = *reinterpret_cast<const float4*>(b + k * ldb + jb);
+    float av[kA];
+    av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
+    if constexpr (kA == 8) {
+      const float4 a1 = *reinterpret_cast<const float4*>(a + k * lda + ib);
+      av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
+    }
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < kA; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
 bins_head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ b, const float* __restrict__ c,
-                     float* __restrict__ out, int hw, int n_bins, int vec) {
+                     float* __restrict__ out, float* __restrict__ stats, int hw, int n_bins,
+                     int vec) {
   extern __shared__ float4 smem[];
   float* xs = reinterpret_cast<float*>(smem);  // [kChannels][kFwdPx]
   float* wts = xs + kXFloats;                  // 2 x [kSliceCh][kWtStride]
@@ -142,7 +179,7 @@ bins_head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int xa = pg * 4, xb = kFwdPx / 2 + pg * 4;     // the thread's pixels: xa.., xb..
   const int wa = bg * 4, wb = kFwdBins / 2 + bg * 4;   // and bins in the chunk: wa.., wb..
 
-  load_x_tile(xs, x + (size_t)img * kChannels * hw, p0, hw, vec != 0);
+  load_x_tile<kFwdPx, kFwdPx>(xs, x + (size_t)img * kChannels * hw, p0, hw, vec != 0);
   load_wt_slice(wts, w, 0, 0);
   cp_async_commit();
 
@@ -166,22 +203,8 @@ bins_head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     cp_async_wait<1>();  // the tile and this stage's slice are in
     __syncthreads();
 
-    const float* xk = xs + (st % kSlices) * kSliceCh * kFwdPx;
-    const float* wk = wts + (st & 1) * kStageFloats;
-#pragma unroll 8
-    for (int k = 0; k < kSliceCh; ++k) {
-      const float4 x0 = *reinterpret_cast<const float4*>(xk + k * kFwdPx + xa);
-      const float4 x1 = *reinterpret_cast<const float4*>(xk + k * kFwdPx + xb);
-      const float4 w0 = *reinterpret_cast<const float4*>(wk + k * kWtStride + wa);
-      const float4 w1 = *reinterpret_cast<const float4*>(wk + k * kWtStride + wb);
-      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-      }
-    }
+    tile_fma<kSliceCh, 8>(xs + (st % kSlices) * kSliceCh * kFwdPx, kFwdPx, xa, xb,
+                          wts + (st & 1) * kStageFloats, kWtStride, wa, wb, acc);
 
     if (st % kSlices == kSlices - 1) {  // a chunk is done: fold its 8 bins per pixel
       const int n0 = st / kSlices * kFwdBins;
@@ -241,20 +264,25 @@ bins_head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       sum = fmaf(red[(kBinGroups + g) * kFwdPx + px], scale, sum);
       depth = fmaf(red[(2 * kBinGroups + g) * kFwdPx + px], scale, depth);
     }
-    out[(size_t)img * hw + p0 + px] = depth / sum;
+    const size_t at = (size_t)img * hw + p0 + px;
+    out[at] = depth / sum;
+    if (stats != nullptr) {
+      stats[at] = m;
+      stats[(size_t)gridDim.y * hw + at] = sum;
+    }
   }
 }
 
 cudaError_t launch(const float* x, const float* w, const float* b, const float* c, float* out,
-                   int batch, int hw, int n_bins, cudaStream_t stream) {
+                   float* stats, int batch, int hw, int n_bins, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(bins_head_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kFwdSmem);
   if (err != cudaSuccess) return err;
   const int vec = hw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid((hw + kFwdPx - 1) / kFwdPx, batch);
-  bins_head_fwd_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(x, w, b, c, out, hw, n_bins,
-                                                                vec);
+  bins_head_fwd_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(x, w, b, c, out, stats, hw,
+                                                                n_bins, vec);
   return cudaGetLastError();
 }
 
@@ -262,309 +290,436 @@ cudaError_t launch(const float* x, const float* w, const float* b, const float* 
 // Backward.
 //
 // Replaces the Pallas TPU kernel mde_tpu/kernels/bins_head.py::_bwd_kernel
-// (launched per image by _bwd_one; its per-tile partials folded by
-// _fused_core_bwd). With p = softmax(logit), depth = sum_n p_n c_n and the
+// (:84, launched per image by _bwd_one; its per-tile partials folded by
+// _fused_core_bwd). With p = softmax(W x + b), depth = sum_n p_n c_n and the
 // upstream gradient g of the depth:
 //   dlog_n = p_n (c_n - depth) g
-//   dx     = sum_n dlog_n W[n, :]           per pixel
+//   dx     = W^T dlog                         per pixel
 //   dW     = sum_px dlog x^T,  db = sum_px dlog      over the batch
 //   dc_n   = sum_px p_n g                             per image
-// recomputing the logits instead of keeping them.
+// p comes from the logits formed again and each pixel's softmax (max m,
+// sum s), which the forward saved: p = exp(logit - m) / s. The depth is the
+// forward's output.
 //
-// A thread holding a pixel's 128 channels and its 128 dx sums needs more
-// than the 255 registers a thread has, so two threads share a pixel: lanes
-// l and l^16 of a warp hold channels 0-63 and 64-127, and a logit is their
-// two half dot products added with one shuffle. Two kernels:
-//  1. pixel kernel, 64 pixels per block (16 per warp): pass 1 runs the
-//     online softmax over the bins (max, sum, depth); pass 2 recomputes each
-//     logit, forms dlog, accumulates dx in registers and sums p g and dlog
-//     over the warp's pixels with shuffles (lanes 0-15 carry p g, lanes
-//     16-31 dlog) into shared memory. It writes dx, the per-block db and dc
-//     partials and each pixel's (max, sum, depth) for kernel 2.
-//  2. weight kernel, 64 bins per block (two threads a bin, holding half of
-//     its W row): it walks a range of pixels staged through shared memory,
-//     recomputes the logit and dlog from the pixel's saved (max, sum, depth)
-//     and accumulates dlog x for its bin in registers; it writes per-block
-//     dW partials.
-// The wrapper folds all partials with torch (as _fused_core_bwd folds its
-// lanes and images). Both kernels compute a logit with the same code, so they
-// agree on dlog bit for bit.
+// What bounds it. Three products of 2 x 128 x n_bins flops a pixel (the
+// logits, dx, dW): at the flagship training shape (16 x 208 x 272 pixels,
+// 256 bins) 178 GFLOP, 2.656 ms at the card's 67 TFLOP/s of float32 FMAs,
+// above the 463 MB of x read and the 463 MB of dx written (0.28 ms at 3.35
+// TB/s). The FMAs run in full float32, no TF32: the float32 path is the
+// parity setting. It runs only under --compute_dtype float32; the default
+// bf16 training takes bins_head_tc.cu.
 //
-// What bounds it. 3 x 2 x 128 x n_bins flops per pixel (logits, dx, dW) at
-// the least: at the flagship training shape (16 x 208 x 272 pixels, 256
-// bins) 178 GFLOP, at least 2.7 ms on the f32 CUDA cores; these kernels
-// compute the logits three times (5 x 2 x 128 x n_bins per pixel). The x
-// read and dx write are 2 x 463 MB, 0.28 ms at 3.35 TB/s. So the FMAs bound
-// this version. The float32 backward runs only under --compute_dtype
-// float32; the default bf16 training takes bins_head_tc.cu.
+// Design. Every product is the forward's register-tiled SGEMM (tile_fma:
+// 8 x 8 outputs a thread, 4 FMAs per float loaded from shared memory), and
+// no float atomics are used, so two calls give the same bits. Two kernels:
+//  1. pixel kernel (dx, db, dc): a block owns 128 pixels of one image, its
+//     feature tile in shared memory once (the forward's loader). For each
+//     128-bin chunk it forms S = X^T W^T from the same W^T slices as the
+//     forward (so the same logits), turns S into dlog in registers, sums p g
+//     and dlog over its pixels (shuffles in the warp, then a fixed order over
+//     the warps through shared memory) into per-block db and dc partials,
+//     stores dlog to shared memory as [bin][px] and accumulates dx += dlog W
+//     over the chunk's bins with W's rows in 32-bin slices on the same
+//     cp.async double buffer. dx stays in 64 registers a thread across the
+//     chunks and is written once, in 16-byte rows where hw % 4 == 0.
+//  2. weight kernel (dW): a block owns 128 bins, holds their W^T in shared
+//     memory, and walks a contiguous range of 64-pixel tiles (across
+//     images), double-buffered by cp.async. Per tile it forms S^T = W X, turns
+//     it into dlog^T from the saved (m, s), the forward's depth and g, stores
+//     it as [bin][px], and accumulates dW += dlog^T X^T, a product over the
+//     tile's pixels in which each thread reads 4 pixels of a row at once (the
+//     rows are 68 floats apart, so 4 or 8 consecutive rows fall on distinct
+//     banks). The grid is one wave over the card's SMs; each block writes one
+//     dW partial, which the wrapper folds in a fixed order.
+// The backward thus forms the logits twice (S, S^T) beside dx and dW: four
+// products, 237 GFLOP at the flagship shape.
 
-constexpr int kBinsPerChunk = 128;      // pixel kernel: bins staged in shared memory at a time
-constexpr int kHalf = kChannels / 2;    // channels per thread of a pair
-constexpr int kPixPerBlockBwd = 64;     // pixel kernel: 4 warps x 16 pixels
-constexpr int kBinsPerBlockDw = 64;     // weight kernel: 4 warps x 16 bins
-constexpr int kPixPerBlockDw = 2048;    // weight kernel: pixels walked per block
-constexpr int kPixStage = 32;           // weight kernel: pixels staged at a time
-constexpr int kStageRow = 2 * (kHalf + 4);  // staged pixel row, halves 4 floats apart
-constexpr size_t kSmemBwd =
-    (size_t)(kBinsPerChunk * kChannels + 4 * kBinsPerChunk) * sizeof(float);
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDlogStride = kFwdPx + 4;       // pixel kernel: a dlog row [bin][px], floats
+constexpr int kStagesPerChunk = 2 * kSlices;  // 4 W^T slices (S), then 4 W-row slices (dx)
+constexpr int kDwPx = 64;                     // weight kernel: pixels per tile
+constexpr int kDwStride = kDwPx + 4;          // a tile row in shared memory, floats
+constexpr int kDwTileFloats = kChannels * kDwStride;
+constexpr size_t kPixSmem =
+    (size_t)(kXFloats + kFwdBins * kDlogStride + 2 * kStageFloats + 2 * kPxWarps * kFwdBins +
+             3 * kFwdPx) * sizeof(float);
+constexpr size_t kDwSmem =
+    (size_t)(3 * kDwTileFloats + kChannels * kWtStride + 2 * 3 * kDwPx) * sizeof(float);
+static_assert(kSliceCh * kStagesPerChunk / 2 == kFwdBins, "W-row slices cover a chunk");
+static_assert(kFwdThreads == 2 * kFwdBins, "one thread per (bin, db or dc) partial");
+static_assert(kFwdBins == kChannels, "dx reuses the S thread layout");
+static_assert(kDwPx == 16 * 4 && kFwdThreads == 256,
+              "weight kernel: S^T as 16 bin x 16 pixel groups, dW as 4 x 2 warps");
 
-// Dot product of 64 weights and 64 features, one operand in registers and
-// the other read from shared memory as float4s. Both forms sum in the same
-// order, so the two backward kernels compute the same logits.
-__device__ __forceinline__ float half_dot(const float4* shared4, const float* regs) {
-  float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
-#pragma unroll
-  for (int q = 0; q < kHalf / 4; ++q) {
-    const float4 v = shared4[q];
-    d0 = fmaf(v.x, regs[4 * q + 0], d0);
-    d1 = fmaf(v.y, regs[4 * q + 1], d1);
-    d2 = fmaf(v.z, regs[4 * q + 2], d2);
-    d3 = fmaf(v.w, regs[4 * q + 3], d3);
-  }
-  return (d0 + d1) + (d2 + d3);
-}
-
-// acc[i] += s * shared[i] for the 64 values of a half row.
-__device__ __forceinline__ void half_axpy(float s, const float4* shared4, float* acc) {
-#pragma unroll
-  for (int q = 0; q < kHalf / 4; ++q) {
-    const float4 v = shared4[q];
-    acc[4 * q + 0] = fmaf(s, v.x, acc[4 * q + 0]);
-    acc[4 * q + 1] = fmaf(s, v.y, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(s, v.z, acc[4 * q + 2]);
-    acc[4 * q + 3] = fmaf(s, v.w, acc[4 * q + 3]);
+// W rows n0..n0+kSliceCh-1, all channels, as [bin][kWtStride].
+__device__ __forceinline__ void load_w_rows(float* ws, const float* w, int n0) {
+  for (int i = threadIdx.x; i < kSliceCh * kChannels; i += kFwdThreads) {
+    const int r = i / kChannels, ch = i % kChannels;
+    cp_async4(ws + r * kWtStride + ch, w + (size_t)(n0 + r) * kChannels + ch, 4);
   }
 }
 
-// The full logit of a pixel from the two halves' dot products; every lane of
-// the warp must call it.
-__device__ __forceinline__ float pair_logit(float partial, float bias) {
-  return partial + __shfl_xor_sync(kFull, partial, 16) + bias;
-}
-
-__global__ void __launch_bounds__(kPixPerBlockBwd * 2)
+__global__ void __launch_bounds__(kFwdThreads, 1)
 bins_head_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ w,
                            const float* __restrict__ b, const float* __restrict__ c,
-                           const float* __restrict__ g, float* __restrict__ dx,
-                           float* __restrict__ stats, float* __restrict__ part_db,
-                           float* __restrict__ part_dc, int batch, int hw, int n_bins) {
+                           const float* __restrict__ g, const float* __restrict__ out,
+                           const float* __restrict__ stats, float* __restrict__ dx,
+                           float* __restrict__ part_db, float* __restrict__ part_dc, int hw,
+                           int n_bins, int vec_x, int vec_dx) {
   extern __shared__ float4 smem[];
-  float* w_s = reinterpret_cast<float*>(smem);   // [kBinsPerChunk][kChannels]
-  float* b_s = w_s + kBinsPerChunk * kChannels;  // [kBinsPerChunk]
-  float* c_s = b_s + kBinsPerChunk;              // [kBinsPerChunk]
-  float* db_s = c_s + kBinsPerChunk;             // [kBinsPerChunk]
-  float* dc_s = db_s + kBinsPerChunk;            // [kBinsPerChunk]
+  float* xs = reinterpret_cast<float*>(smem);  // [kChannels][kFwdPx]
+  float* dls = xs + kXFloats;                  // [kFwdBins][kDlogStride]
+  float* bufs = dls + kFwdBins * kDlogStride;  // 2 x [kSliceCh][kWtStride]
+  float* red = bufs + 2 * kStageFloats;        // [db, dc][kPxWarps][kFwdBins]
+  float* px_max = red + 2 * kPxWarps * kFwdBins;
+  float* px_scale = px_max + kFwdPx;  // g / s
+  float* px_depth = px_scale + kFwdPx;
 
-  const int lane = threadIdx.x & 31;
-  const int half = lane >> 4;
   const int img = blockIdx.y;
-  const int pix = blockIdx.x * kPixPerBlockBwd + (threadIdx.x >> 5) * 16 + (lane & 15);
-  const bool live = pix < hw;
+  const int p0 = blockIdx.x * kFwdPx;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pw = warp % kPxWarps;
+  const int pg = pw * 4 + (lane >> 3);                // pixel group
+  const int bg = (warp / kPxWarps) * 8 + (lane & 7);  // bin (S) or channel (dx) group
+  const int xa = pg * 4, xb = kFwdPx / 2 + pg * 4;
+  const int wa = bg * 4, wb = kFwdBins / 2 + bg * 4;
 
-  float xr[kHalf];
-  const float* xp = x + ((size_t)img * kChannels + half * kHalf) * hw + (live ? pix : 0);
-#pragma unroll
-  for (int ch = 0; ch < kHalf; ++ch) {
-    xr[ch] = live ? xp[(size_t)ch * hw] : 0.f;
+  load_x_tile<kFwdPx, kFwdPx>(xs, x + (size_t)img * kChannels * hw, p0, hw, vec_x != 0);
+  load_wt_slice(bufs, w, 0, 0);
+  cp_async_commit();
+  if (threadIdx.x < kFwdPx) {  // pixels past hw get p g = 0
+    const int p = p0 + threadIdx.x;
+    const bool in = p < hw;
+    const size_t at = (size_t)img * hw + (in ? p : 0);
+    px_max[threadIdx.x] = in ? stats[at] : 0.f;
+    px_scale[threadIdx.x] = in ? g[at] / stats[(size_t)gridDim.y * hw + at] : 0.f;
+    px_depth[threadIdx.x] = in ? out[at] : 0.f;
   }
-  const float gv = live ? g[(size_t)img * hw + pix] : 0.f;
+
   const float* c_img = c + (size_t)img * n_bins;
-
-  auto stage = [&](int n0, int nb) {
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < nb * kChannels; i += blockDim.x) {
-      w_s[i] = w[(size_t)n0 * kChannels + i];
-    }
-    for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-      b_s[i] = b[n0 + i];
-      c_s[i] = c_img[n0 + i];
-      db_s[i] = 0.f;
-      dc_s[i] = 0.f;
-    }
-    __syncthreads();
-  };
-
-  // Pass 1: softmax max, sum and depth.
-  float run_max = -CUDART_INF_F, run_sum = 0.f, run_depth = 0.f;
-  for (int n0 = 0; n0 < n_bins; n0 += kBinsPerChunk) {
-    const int nb = min(kBinsPerChunk, n_bins - n0);
-    stage(n0, nb);
-    for (int n = 0; n < nb; ++n) {
-      const float4* w_row = reinterpret_cast<const float4*>(w_s + n * kChannels + half * kHalf);
-      const float logit = pair_logit(half_dot(w_row, xr), b_s[n]);
-      if (logit > run_max) {
-        const float scale = expf(run_max - logit);
-        run_sum *= scale;
-        run_depth *= scale;
-        run_max = logit;
-      }
-      const float e = expf(logit - run_max);
-      run_sum += e;
-      run_depth = fmaf(e, c_s[n], run_depth);
-    }
-  }
-  const float depth = run_depth / run_sum;
-
-  // Pass 2: dlog, dx, and the block's db and dc.
-  float dxr[kHalf];
-#pragma unroll
-  for (int ch = 0; ch < kHalf; ++ch) dxr[ch] = 0.f;
   const size_t part = ((size_t)img * gridDim.x + blockIdx.x) * n_bins;
-  for (int n0 = 0; n0 < n_bins; n0 += kBinsPerChunk) {
-    const int nb = min(kBinsPerChunk, n_bins - n0);
-    stage(n0, nb);
-    for (int n = 0; n < nb; ++n) {
-      const float4* w_row = reinterpret_cast<const float4*>(w_s + n * kChannels + half * kHalf);
-      const float logit = pair_logit(half_dot(w_row, xr), b_s[n]);
-      const float pg = expf(logit - run_max) / run_sum * gv;
-      const float dlog = pg * (c_s[n] - depth);
-      half_axpy(dlog, w_row, dxr);
-      // lanes 0-15 sum p g (for dc), lanes 16-31 dlog (for db), over the
-      // warp's 16 pixels
-      float v = half ? dlog : pg;
-      v += __shfl_xor_sync(kFull, v, 8);
-      v += __shfl_xor_sync(kFull, v, 4);
-      v += __shfl_xor_sync(kFull, v, 2);
-      v += __shfl_xor_sync(kFull, v, 1);
-      if ((lane & 15) == 0) atomicAdd(half ? &db_s[n] : &dc_s[n], v);
-    }
-    __syncthreads();  // the chunk's sums are in
-    for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-      part_db[part + n0 + i] = db_s[i];
-      part_dc[part + n0 + i] = dc_s[i];
-    }
+  float acc[8][8], dxa[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = dxa[i][j] = 0.f;
   }
 
-  if (live) {
-    float* dxp = dx + ((size_t)img * kChannels + half * kHalf) * hw + pix;
+  const int stages = n_bins / kFwdBins * kStagesPerChunk;
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) {
+      const int chunk = (st + 1) / kStagesPerChunk, phase = (st + 1) % kStagesPerChunk;
+      float* next = bufs + ((st + 1) & 1) * kStageFloats;
+      if (phase < kSlices) {
+        load_wt_slice(next, w, chunk * kFwdBins, phase * kSliceCh);
+      } else {
+        load_w_rows(next, w, chunk * kFwdBins + (phase - kSlices) * kSliceCh);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // the tile and this stage's slice are in
+    __syncthreads();
+
+    const int n0 = st / kStagesPerChunk * kFwdBins, phase = st % kStagesPerChunk;
+    const float* buf = bufs + (st & 1) * kStageFloats;
+    if (phase < kSlices) {  // S += X^T W^T over this slice's channels
+      tile_fma<kSliceCh, 8>(xs + phase * kSliceCh * kFwdPx, kFwdPx, xa, xb, buf, kWtStride, wa,
+                            wb, acc);
+    }
+    if (phase == kSlices - 1) {  // S is done: dlog, its sums, and dlog to shared memory
+      float bias[8], center[8], sum_dl[8], sum_pg[8];
 #pragma unroll
-    for (int ch = 0; ch < kHalf; ++ch) dxp[(size_t)ch * hw] = dxr[ch];
-    if (half == 0) {
-      const size_t plane = (size_t)batch * hw;
-      const size_t at = (size_t)img * hw + pix;
-      stats[at] = run_max;
-      stats[plane + at] = run_sum;
-      stats[2 * plane + at] = depth;
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + (j < 4 ? wa + j : wb + j - 4);
+        bias[j] = __ldg(b + n);
+        center[j] = __ldg(c_img + n);
+        sum_dl[j] = sum_pg[j] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int px = i < 4 ? xa + i : xb + i - 4;
+        const float m = px_max[px], scale = px_scale[px], depth = px_depth[px];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float pgv = expf(acc[i][j] + bias[j] - m) * scale;
+          const float dl = pgv * (center[j] - depth);
+          sum_pg[j] += pgv;
+          sum_dl[j] += dl;
+          acc[i][j] = dl;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* row = dls + (j < 4 ? wa + j : wb + j - 4) * kDlogStride;
+        *reinterpret_cast<float4*>(row + xa) = make_float4(acc[0][j], acc[1][j], acc[2][j],
+                                                           acc[3][j]);
+        *reinterpret_cast<float4*>(row + xb) = make_float4(acc[4][j], acc[5][j], acc[6][j],
+                                                           acc[7][j]);
+        // over the warp's 4 pixel groups (lane bits 3 and 4), a fixed order
+        float dl = sum_dl[j], pgv = sum_pg[j];
+        dl += __shfl_xor_sync(0xffffffffu, dl, 8);
+        pgv += __shfl_xor_sync(0xffffffffu, pgv, 8);
+        dl += __shfl_xor_sync(0xffffffffu, dl, 16);
+        pgv += __shfl_xor_sync(0xffffffffu, pgv, 16);
+        if (lane < 8) {
+          const int n = j < 4 ? wa + j : wb + j - 4;
+          red[pw * kFwdBins + n] = dl;
+          red[(kPxWarps + pw) * kFwdBins + n] = pgv;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = 0.f;
+      }
+    }
+    if (phase == kSlices) {  // dlog and the sums are in: the block's db and dc partials
+      const int which = threadIdx.x / kFwdBins, n = threadIdx.x % kFwdBins;
+      const float* r = red + which * kPxWarps * kFwdBins + n;
+      float v = r[0];
+#pragma unroll
+      for (int q = 1; q < kPxWarps; ++q) v += r[q * kFwdBins];
+      (which ? part_dc : part_db)[part + n0 + n] = v;
+    }
+    if (phase >= kSlices) {  // dx += dlog W over this slice's bins
+      tile_fma<kSliceCh, 8>(dls + (phase - kSlices) * kSliceCh * kDlogStride, kDlogStride, xa,
+                            xb, buf, kWtStride, wa, wb, dxa);
+    }
+    __syncthreads();  // every thread is done with this stage's buffer (and dlog, red)
+  }
+
+  // dx: the thread's 8 pixels of channels wa.. and wb..
+  float* dx_img = dx + (size_t)img * kChannels * hw;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float* row = dx_img + (size_t)(j < 4 ? wa + j : wb + j - 4) * hw;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + (h ? xb : xa);
+      if (vec_dx) {  // hw % 4 == 0: 4 pixels wholly in or out
+        if (p < hw) {
+          *reinterpret_cast<float4*>(row + p) =
+              make_float4(dxa[4 * h][j], dxa[4 * h + 1][j], dxa[4 * h + 2][j], dxa[4 * h + 3][j]);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (p + q < hw) row[p + q] = dxa[4 * h + q][j];
+        }
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(kBinsPerBlockDw * 2)
+struct TileRows {  // per pixel of a weight-kernel tile: softmax max, g / sum, depth
+  float max[kDwPx], scale[kDwPx], depth[kDwPx];
+};
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
 bins_head_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ w,
                             const float* __restrict__ b, const float* __restrict__ c,
-                            const float* __restrict__ g, const float* __restrict__ stats,
-                            float* __restrict__ part_dw, int batch, int hw, int n_bins) {
-  __shared__ __align__(16) float x_s[kPixStage * kStageRow];
-  __shared__ float max_s[kPixStage], sum_s[kPixStage], depth_s[kPixStage], g_s[kPixStage];
+                            const float* __restrict__ g, const float* __restrict__ out,
+                            const float* __restrict__ stats, float* __restrict__ part_dw,
+                            int batch, int hw, int n_bins, int vec) {
+  extern __shared__ float4 smem[];
+  float* xts = reinterpret_cast<float*>(smem);  // 2 x [kChannels][kDwStride]
+  float* dls = xts + 2 * kDwTileFloats;         // [kFwdBins][kDwStride]
+  float* wts = dls + kDwTileFloats;             // [kChannels][kWtStride], the block's W^T
+  TileRows* rows = reinterpret_cast<TileRows*>(wts + kChannels * kWtStride);  // 2
 
-  const int lane = threadIdx.x & 31;
-  const int half = lane >> 4;
-  const int img = blockIdx.z;
-  const int bin = blockIdx.y * kBinsPerBlockDw + (threadIdx.x >> 5) * 16 + (lane & 15);
+  const int n0 = blockIdx.y * kFwdBins;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // S^T: the thread's bins wa.., wb.. and pixels xq..xq+3
+  const int bg = (warp & 1) * 8 + (lane & 7);
+  const int xq = ((warp >> 1) * 4 + (lane >> 3)) * 4;
+  const int wa = bg * 4, wb = kFwdBins / 2 + bg * 4;
+  // dW: the thread's bins ib + 4 r and channels jc + 8 r, r < 8
+  const int ib = (warp & 3) * 32 + (lane >> 3), jc = (warp >> 2) * 64 + (lane & 7);
 
-  float wr[kHalf];
-  const float* w_row = w + (size_t)bin * kChannels + half * kHalf;
-#pragma unroll
-  for (int ch = 0; ch < kHalf; ++ch) wr[ch] = w_row[ch];
-  const float bias = b[bin];
-  const float center = c[(size_t)img * n_bins + bin];
-  float acc[kHalf];
-#pragma unroll
-  for (int ch = 0; ch < kHalf; ++ch) acc[ch] = 0.f;
-
+  const int per_img = (hw + kDwPx - 1) / kDwPx, total = batch * per_img;
+  const int per_block = (total + gridDim.x - 1) / gridDim.x;
+  const int begin = min(total, (int)blockIdx.x * per_block), end = min(total, begin + per_block);
   const size_t plane = (size_t)batch * hw;
-  const float* x_img = x + (size_t)img * kChannels * hw;
-  const int begin = blockIdx.x * kPixPerBlockDw;
-  const int end = min(hw, begin + kPixPerBlockDw);
-  for (int p0 = begin; p0 < end; p0 += kPixStage) {
-    const int count = min(kPixStage, end - p0);
-    __syncthreads();  // every thread is done with the previous pixels
-    for (int i = threadIdx.x; i < kPixStage * kChannels; i += blockDim.x) {
-      const int ch = i / kPixStage, j = i % kPixStage;
-      const float v = j < count ? x_img[(size_t)ch * hw + p0 + j] : 0.f;
-      x_s[j * kStageRow + (ch / kHalf) * (kHalf + 4) + ch % kHalf] = v;
+
+  auto load = [&](int buf, int tile) {
+    const int img = tile / per_img, p0 = (tile % per_img) * kDwPx;
+    load_x_tile<kDwPx, kDwStride>(xts + buf * kDwTileFloats, x + (size_t)img * kChannels * hw,
+                                  p0, hw, vec != 0);
+    if (threadIdx.x < kDwPx) {  // pixels past hw get p g = 0
+      const int p = p0 + threadIdx.x;
+      const bool in = p < hw;
+      const size_t at = (size_t)img * hw + (in ? p : 0);
+      rows[buf].max[threadIdx.x] = in ? stats[at] : 0.f;
+      rows[buf].scale[threadIdx.x] = in ? g[at] / stats[plane + at] : 0.f;
+      rows[buf].depth[threadIdx.x] = in ? out[at] : 0.f;
     }
-    for (int j = threadIdx.x; j < count; j += blockDim.x) {
-      const size_t at = (size_t)img * hw + p0 + j;
-      max_s[j] = stats[at];
-      sum_s[j] = stats[plane + at];
-      depth_s[j] = stats[2 * plane + at];
-      g_s[j] = g[at];
+  };
+
+  for (int k0 = 0; k0 < kChannels; k0 += kSliceCh) load_wt_slice(wts + k0 * kWtStride, w, n0, k0);
+  if (begin < end) load(0, begin);
+  cp_async_commit();
+  float bias[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) bias[j] = __ldg(b + n0 + (j < 4 ? wa + j : wb + j - 4));
+  float dw[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) dw[r][s] = 0.f;
+  }
+
+  for (int tile = begin, buf = 0; tile < end; ++tile, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile is in; every thread is done with the previous one
+    if (tile + 1 < end) load(buf ^ 1, tile + 1);
+    cp_async_commit();
+    const float* xs = xts + buf * kDwTileFloats;
+    const TileRows& tr = rows[buf];
+    const float* c_img = c + (size_t)(tile / per_img) * n_bins + n0;
+
+    // S^T = W X over the channels: the thread's 4 pixels x 8 bins
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
     }
-    __syncthreads();
-    for (int j = 0; j < count; ++j) {
-      const float4* xj = reinterpret_cast<const float4*>(x_s + j * kStageRow + half * (kHalf + 4));
-      const float logit = pair_logit(half_dot(xj, wr), bias);
-      const float pg = expf(logit - max_s[j]) / sum_s[j] * g_s[j];
-      const float dlog = pg * (center - depth_s[j]);
-      half_axpy(dlog, xj, acc);
+    tile_fma<kChannels, 4>(xs, kDwStride, xq, 0, wts, kWtStride, wa, wb, s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = j < 4 ? wa + j : wb + j - 4;
+      const float center = __ldg(c_img + n);
+      float dl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int px = xq + i;
+        const float pgv = expf(s[i][j] + bias[j] - tr.max[px]) * tr.scale[px];
+        dl[i] = pgv * (center - tr.depth[px]);
+      }
+      *reinterpret_cast<float4*>(dls + n * kDwStride + xq) = make_float4(dl[0], dl[1], dl[2],
+                                                                         dl[3]);
+    }
+    __syncthreads();  // dlog^T of the tile is in
+
+    // dW += dlog^T X^T over the tile's pixels, 4 at a time
+#pragma unroll 2
+    for (int k = 0; k < kDwPx; k += 4) {
+      float4 a[8], v[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        a[r] = *reinterpret_cast<const float4*>(dls + (ib + 4 * r) * kDwStride + k);
+        v[r] = *reinterpret_cast<const float4*>(xs + (jc + 8 * r) * kDwStride + k);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          float t = fmaf(a[r].x, v[q].x, dw[r][q]);
+          t = fmaf(a[r].y, v[q].y, t);
+          t = fmaf(a[r].z, v[q].z, t);
+          dw[r][q] = fmaf(a[r].w, v[q].w, t);
+        }
+      }
     }
   }
 
-  float* out = part_dw + (((size_t)img * gridDim.x + blockIdx.x) * n_bins + bin) * kChannels +
-               half * kHalf;
+  // this block's partial; a block with no tiles writes zeros
+  cp_async_wait<0>();
 #pragma unroll
-  for (int ch = 0; ch < kHalf; ++ch) out[ch] = acc[ch];
+  for (int r = 0; r < 8; ++r) {
+    float* row = part_dw + ((size_t)blockIdx.x * n_bins + n0 + ib + 4 * r) * kChannels + jc;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) row[8 * q] = dw[r][q];
+  }
+}
+
+cudaError_t weight_blocks(int batch, int hw, int n_bins, int device, int* blocks) {
+  int sms = 0, occupancy = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bins_head_bwd_weight_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy, bins_head_bwd_weight_kernel,
+                                                      kFwdThreads, kDwSmem);
+  if (err != cudaSuccess) return err;
+  const long tiles = (long)batch * ((hw + kDwPx - 1) / kDwPx);
+  const long columns = n_bins / kFwdBins;
+  const long wanted = (long)sms * std::max(occupancy, 1) / std::max(columns, 1L);
+  *blocks = (int)std::max(1L, std::min(tiles, wanted));
+  return cudaSuccess;
 }
 
 cudaError_t launch_bwd(const float* x, const float* w, const float* b, const float* c,
-                       const float* g, float* dx, float* stats, float* part_db, float* part_dc,
-                       float* part_dw, int batch, int hw, int n_bins, cudaStream_t stream) {
+                       const float* g, const float* out, const float* stats, float* dx,
+                       float* part_db, float* part_dc, float* part_dw, int dw_blocks, int batch,
+                       int hw, int n_bins, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(bins_head_bwd_pixel_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBwd);
+                                         (int)kPixSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid1((hw + kPixPerBlockBwd - 1) / kPixPerBlockBwd, batch);
-  bins_head_bwd_pixel_kernel<<<grid1, kPixPerBlockBwd * 2, kSmemBwd, stream>>>(
-      x, w, b, c, g, dx, stats, part_db, part_dc, batch, hw, n_bins);
+  err = cudaFuncSetAttribute(bins_head_bwd_weight_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  if (err != cudaSuccess) return err;
+  const int vec_x = hw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_dx = hw % 4 == 0 && reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const dim3 grid1((hw + kFwdPx - 1) / kFwdPx, batch);
+  bins_head_bwd_pixel_kernel<<<grid1, kFwdThreads, kPixSmem, stream>>>(
+      x, w, b, c, g, out, stats, dx, part_db, part_dc, hw, n_bins, vec_x, vec_dx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid2((hw + kPixPerBlockDw - 1) / kPixPerBlockDw, n_bins / kBinsPerBlockDw,
-                   batch);
-  bins_head_bwd_weight_kernel<<<grid2, kBinsPerBlockDw * 2, 0, stream>>>(
-      x, w, b, c, g, stats, part_dw, batch, hw, n_bins);
+  const dim3 grid2(dw_blocks, n_bins / kFwdBins);
+  bins_head_bwd_weight_kernel<<<grid2, kFwdThreads, kDwSmem, stream>>>(
+      x, w, b, c, g, out, stats, part_dw, batch, hw, n_bins, vec_x);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (batch, 128, hw) f32; w: (n_bins, 128) f32; b: (n_bins,) f32;
-// c: (batch, n_bins) f32; out: (batch, hw) f32. n_bins is a multiple of 128.
-// All contiguous, on `device`, whose stream `stream` is. Returns the
-// cudaError_t of the launch (0 on success).
+// c: (batch, n_bins) f32; out: (batch, hw) f32, the depth; stats: null, or
+// (2, batch, hw) f32 for each pixel's softmax max and sum. n_bins is a
+// multiple of 128. All contiguous, on `device`, whose stream `stream` is.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int mde_bins_head_fwd(const void* x, const void* w, const void* b, const void* c,
-                                 void* out, int batch, int hw, int n_bins, int device,
-                                 void* stream) {
+                                 void* out, void* stats, int batch, int hw, int n_bins,
+                                 int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   return (int)launch(static_cast<const float*>(x), static_cast<const float*>(w),
                      static_cast<const float*>(b), static_cast<const float*>(c),
-                     static_cast<float*>(out), batch, hw, n_bins,
+                     static_cast<float*>(out), static_cast<float*>(stats), batch, hw, n_bins,
                      static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int mde_bins_head_bwd_pixels_per_block() { return kPixPerBlockBwd; }
-extern "C" int mde_bins_head_bwd_weight_pixels_per_block() { return kPixPerBlockDw; }
+extern "C" int mde_bins_head_bwd_pixels_per_block() { return kFwdPx; }
 
-// x: (batch, 128, hw) f32; w: (n_bins, 128) f32; b: (n_bins,) f32;
-// c: (batch, n_bins) f32; g: (batch, hw) f32, the gradient of the depth.
-// Writes dx: (batch, 128, hw) f32; stats: (3, batch, hw) f32 scratch;
-// part_db, part_dc: (batch, ceil(hw / 64), n_bins) f32 partials;
-// part_dw: (batch, ceil(hw / 2048), n_bins, 128) f32 partials. n_bins is a
-// multiple of 64. All contiguous, on `device`, whose stream `stream` is.
-// Returns the cudaError_t of the launches (0 on success).
+// Blocks along the pixels of the backward weight kernel (its grid is this
+// by n_bins / 128): one wave over the card. Negative on error.
+extern "C" int mde_bins_head_bwd_weight_blocks(int batch, int hw, int n_bins, int device) {
+  int blocks = 0;
+  if (cudaSetDevice(device) != cudaSuccess ||
+      weight_blocks(batch, hw, n_bins, device, &blocks) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+// x, w, b, c as for the forward; g: (batch, hw) f32, the gradient of the
+// depth; out and stats: the forward's depth and (max, sum). Writes dx:
+// (batch, 128, hw) f32; part_db, part_dc: (batch, ceil(hw / 128), n_bins)
+// f32 partials; part_dw: (dw_blocks, n_bins, 128) f32 partials, dw_blocks
+// from mde_bins_head_bwd_weight_blocks. n_bins is a multiple of 128. All
+// contiguous, on `device`, whose stream `stream` is. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int mde_bins_head_bwd(const void* x, const void* w, const void* b, const void* c,
-                                 const void* g, void* dx, void* stats, void* part_db,
-                                 void* part_dc, void* part_dw, int batch, int hw, int n_bins,
-                                 int device, void* stream) {
+                                 const void* g, const void* out, const void* stats, void* dx,
+                                 void* part_db, void* part_dc, void* part_dw, int dw_blocks,
+                                 int batch, int hw, int n_bins, int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   return (int)launch_bwd(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<const float*>(c), static_cast<const float*>(g), static_cast<float*>(dx),
-      static_cast<float*>(stats), static_cast<float*>(part_db), static_cast<float*>(part_dc),
-      static_cast<float*>(part_dw), batch, hw, n_bins, static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(c), static_cast<const float*>(g), static_cast<const float*>(out),
+      static_cast<const float*>(stats), static_cast<float*>(dx), static_cast<float*>(part_db),
+      static_cast<float*>(part_dc), static_cast<float*>(part_dw), dw_blocks, batch, hw, n_bins,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mde_cuda_error_string(int err) {

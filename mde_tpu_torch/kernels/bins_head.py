@@ -4,11 +4,15 @@ port of `mde_tpu/kernels/bins_head.py`, forward and backward.
 `fused_bins_head` runs hand-written CUDA kernels for CUDA tensors, through
 `FusedBinsHead`, an autograd.Function whose forward launches a forward kernel
 (replacing the Pallas `_fwd_kernel`) and whose backward launches two backward
-kernels (replacing `_bwd_kernel`) and folds their per-block partials as
-`_fused_core_bwd` folds its per-tile ones. The features' dtype picks the
-kernel family: float32 goes to the CUDA-core kernels of `csrc/bins_head.cu`,
-bfloat16 to the tensor-core kernels of `csrc/bins_head_tc.cu`, whose forward
-also saves each pixel's softmax (max, sum) for its backward. For CPU tensors
+kernels (replacing `_bwd_kernel`) and folds their per-block partials in a
+fixed order, as `_fused_core_bwd` folds its per-tile ones. The features' dtype
+picks the kernel family: float32 goes to the CUDA-core kernels of
+`csrc/bins_head.cu`, bfloat16 to the tensor-core kernels of
+`csrc/bins_head_tc.cu`. Each family's forward saves each pixel's softmax
+(max, sum) for its backward, which then forms p without running the softmax
+again; the float32 forward does so only when a backward can follow (grad
+enabled and an input that requires it), so serving writes nothing more.
+For CPU tensors
 it runs `fused_bins_head_reference`, the plain PyTorch version with the same
 bf16 rounding points: autograd differentiates it in f32, and in bf16
 `PlainBf16Head` gives the JAX kernel's gradients. There is no fallback
@@ -142,28 +146,32 @@ def fused_bins_head(features_nchw: torch.Tensor, weight: torch.Tensor,
         return fused_bins_head_reference(features_nchw, weight, bias, centers)
     if features_nchw.device.type != "cuda":
         raise ValueError(f"no bins-head kernel for device {features_nchw.device}")
-    for name, t in (("features", features_nchw), ("weight", weight),
-                    ("bias", bias), ("centers", centers)):
+    inputs = (features_nchw, weight, bias, centers)
+    for name, t in zip(("features", "weight", "bias", "centers"), inputs):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return FusedBinsHead.apply(features_nchw, weight, bias, centers)
+    backward = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    return FusedBinsHead.apply(*inputs, backward)
 
 
 class FusedBinsHead(torch.autograd.Function):
     """The CUDA forward and backward kernels as one differentiable op, of
-    the family the features' dtype picks. The amp decorators keep the dtypes
-    as they come under autocast: features in their dtype, weight, bias and
-    centers in float32."""
+    the family the features' dtype picks. Both families save the forward's
+    depth and each pixel's softmax (max, sum) for the backward; the float32
+    forward writes the (max, sum) only where `backward` says one can follow.
+    The amp decorators keep the dtypes as they come under autocast: features
+    in their dtype, weight, bias and centers in float32."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, x, weight, bias, centers):
+    def forward(ctx, x, weight, bias, centers, backward):
         if x.dtype == torch.bfloat16:
             out, stats = _launch_tc(x, weight, bias, centers)
+        else:
+            out, stats = _launch(x, weight, bias, centers, stats=backward)
+        if backward:
             ctx.save_for_backward(x, weight, bias, centers, out, stats)
-            return out
-        ctx.save_for_backward(x, weight, bias, centers)
-        return _launch(x, weight, bias, centers)
+        return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
@@ -171,7 +179,7 @@ class FusedBinsHead(torch.autograd.Function):
         saved = ctx.saved_tensors
         launch = _launch_tc_bwd if saved[0].dtype == torch.bfloat16 else _launch_bwd
         dx, dw, db, dc = launch(*saved[:4], grad, *saved[4:])
-        return dx, dw.reshape(saved[1].shape), db, dc
+        return dx, dw.reshape(saved[1].shape), db, dc, None
 
 
 def library() -> ctypes.CDLL:
@@ -180,14 +188,14 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load(_SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mde_bins_head_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.mde_bins_head_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         lib.mde_bins_head_fwd.restype = i32
-        lib.mde_bins_head_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
+        lib.mde_bins_head_bwd.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
         lib.mde_bins_head_bwd.restype = i32
-        for fn in (lib.mde_bins_head_bwd_pixels_per_block,
-                   lib.mde_bins_head_bwd_weight_pixels_per_block):
-            fn.argtypes = []
-            fn.restype = i32
+        lib.mde_bins_head_bwd_pixels_per_block.argtypes = []
+        lib.mde_bins_head_bwd_pixels_per_block.restype = i32
+        lib.mde_bins_head_bwd_weight_blocks.argtypes = [i32] * 4
+        lib.mde_bins_head_bwd_weight_blocks.restype = i32
         lib.mde_cuda_error_string.argtypes = [i32]
         lib.mde_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -218,43 +226,50 @@ def _raise_on(lib, err, what):
                            + lib.mde_cuda_error_string(err).decode())
 
 
-def _launch(x, weight, bias, centers):
+def _launch(x, weight, bias, centers, stats=False):
+    """The float32 forward; returns the depth (B, 1, H, W) and, where
+    `stats`, each pixel's softmax (max, sum) as (2, B, H*W), else None."""
     global LAUNCHES
     lib = library()
     b, _, h, w = x.shape
     out = torch.empty((b, 1, h, w), dtype=torch.float32, device=x.device)
+    saved = torch.empty((2, b, h * w), dtype=torch.float32, device=x.device) if stats else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.mde_bins_head_fwd(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), centers.data_ptr(),
-        out.data_ptr(), b, h * w, weight.shape[0], x.device.index, stream)
+        out.data_ptr(), saved.data_ptr() if stats else None, b, h * w, weight.shape[0],
+        x.device.index, stream)
     _raise_on(lib, err, "bins-head")
     LAUNCHES += 1
-    return out
+    return out, saved
 
 
-def _launch_bwd(x, weight, bias, centers, grad):
-    """The backward kernels; returns (dx, dW (n_bins, 128), db, dcenters)
-    with the per-block partials folded."""
+def _launch_bwd(x, weight, bias, centers, grad, out, stats):
+    """The float32 backward kernels, from the forward's depth and stats;
+    returns (dx, dW (n_bins, 128), db, dcenters) with the per-block partials
+    folded in a fixed order."""
     global BWD_LAUNCHES
     lib = library()
     b, _, h, w = x.shape
     hw, n = h * w, weight.shape[0]
     g = grad.float().contiguous()
     blocks = -(-hw // lib.mde_bins_head_bwd_pixels_per_block())
-    dw_blocks = -(-hw // lib.mde_bins_head_bwd_weight_pixels_per_block())
+    dw_blocks = lib.mde_bins_head_bwd_weight_blocks(b, hw, n, x.device.index)
+    if dw_blocks <= 0:
+        raise RuntimeError("bins-head backward: no launch shape for the weight kernel "
+                           "on this device")
     dx = torch.empty_like(x)
-    stats = torch.empty((3, b, hw), dtype=torch.float32, device=x.device)
     part_dbc = torch.empty((2, b, blocks, n), dtype=torch.float32, device=x.device)
-    part_dw = torch.empty((b, dw_blocks, n, _CHANNELS), dtype=torch.float32,
-                          device=x.device)
+    part_dw = torch.empty((dw_blocks, n, _CHANNELS), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.mde_bins_head_bwd(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), centers.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), stats.data_ptr(), part_dbc[0].data_ptr(),
-        part_dbc[1].data_ptr(), part_dw.data_ptr(), b, hw, n, x.device.index, stream)
+        g.data_ptr(), out.data_ptr(), stats.data_ptr(), dx.data_ptr(),
+        part_dbc[0].data_ptr(), part_dbc[1].data_ptr(), part_dw.data_ptr(), dw_blocks,
+        b, hw, n, x.device.index, stream)
     _raise_on(lib, err, "bins-head backward")
     BWD_LAUNCHES += 2
-    return dx, part_dw.sum(dim=(0, 1)), part_dbc[0].sum(dim=(0, 1)), part_dbc[1].sum(dim=1)
+    return dx, part_dw.sum(dim=0), part_dbc[0].sum(dim=(0, 1)), part_dbc[1].sum(dim=1)
 
 
 def _vec(x, hw):

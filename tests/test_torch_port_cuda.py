@@ -12,10 +12,15 @@ its own launch counters. float32 comparisons run with TF32 off. Forward
 tolerances are those of tests/test_kernels.py: rtol/atol 1e-5 in float32,
 2e-2 in bfloat16.
 Gradients are compared by their largest error against the largest reference
-value of the tensor: 1e-4 in float32 (dW and db are sums over up to 150k
-pixels, taken by the kernel in per-block partials and by autograd in another
-order) and, in bfloat16 (the same rounding points, other orders), 2e-2 for
-dx and dcenters and 1e-3 for dW and db (`GRAD_TOL`).
+value of the tensor: 1e-4 in float32 and, in bfloat16 (the same rounding
+points, other orders), 2e-2 for dx and dcenters and 1e-3 for dW and db
+(`GRAD_TOL`). float32 stays at 1e-4 because its sums are long and taken in
+another order than autograd's: dW and db sum up to 905k pixels (per tile,
+per block, then over the blocks), dx sums the bins in 128-bin chunks, and p
+comes from the forward's saved softmax (max, sum), whose sum is itself
+merged across 16 threads; each of these moves an f32 sum by ~1e-6 of its
+largest term. The float32 backward is deterministic: two calls give the same
+bits (no float atomics; the partials are folded in a fixed order).
 The chamfer value and centre gradient are held at rtol 1e-5 / 1e-4, as
 tests/test_kernels.py holds the Pallas kernel. The chamfer reductions are
 held at rtol 1e-5, atol 1e-6: min, nearest depth and y_min are the same
@@ -116,7 +121,9 @@ def _assert_grad_close(got, want, tol, name):
 def test_bins_head_backward_kernel_matches_plain(cuda, dtype, b, h, w, n):
     """dx, dW, db and dcenters of the backward kernels against autograd
     through the plain version; ragged pixel counts (24, 63, 65, 1617), the
-    flagship training shape and 512 to 1024 bins included."""
+    flagship training shape and 512 to 1024 bins included. The forward runs
+    first and saves each pixel's softmax (max, sum), which the backward
+    reads (both families)."""
     args = _head_inputs(cuda, dtype, b, h, w, n)
     upstream = torch.randn((b, 1, h, w), generator=torch.Generator().manual_seed(5)).to(cuda)
     _, want = _head_grads(bins_head.fused_bins_head_reference, args, upstream)
@@ -133,18 +140,22 @@ def test_bins_head_backward_kernel_matches_plain(cuda, dtype, b, h, w, n):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_bins_head_bf16_kernels_take_misaligned_features(cuda, dtype):
     """hw is a multiple of 8, but the features start one element (4 bytes in
-    f32, 2 in bf16) off a 16-byte boundary: the float32 forward and the
-    tensor-core kernels then load them element by element."""
-    b, h, w, n = 2, 16, 24, 128
-    args = _head_inputs(cuda, dtype, b, h, w, n, misaligned=True)
-    assert args[0].data_ptr() % 16 != 0
-    upstream = torch.randn((b, 1, h, w), generator=torch.Generator().manual_seed(8)).to(cuda)
-    want_out, want = _head_grads(bins_head.fused_bins_head_reference, args, upstream)
-    got_out, got = _head_grads(bins_head.fused_bins_head, args, upstream)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got_out, want_out, rtol=TOL[dtype], atol=TOL[dtype])
-    for name, g, r in zip(("dx", "dW", "db", "dcenters"), got, want):
-        _assert_grad_close(g, r, GRAD_TOL[dtype][name], name)
+    f32, 2 in bf16) off a 16-byte boundary: the forward and both backward
+    kernels of each family then load them element by element (the float32
+    backward still stores dx, its own allocation, in 16-byte rows). Then 63
+    pixels, where neither the pointer nor hw allows 16-byte rows."""
+    for b, h, w, n in ((2, 16, 24, 128), (1, 7, 9, 256)):
+        args = _head_inputs(cuda, dtype, b, h, w, n, misaligned=True)
+        assert args[0].data_ptr() % 16 != 0
+        upstream = torch.randn((b, 1, h, w), generator=torch.Generator().manual_seed(8)).to(cuda)
+        want_out, want = _head_grads(bins_head.fused_bins_head_reference, args, upstream)
+        before = _bwd_count(dtype)
+        got_out, got = _head_grads(bins_head.fused_bins_head, args, upstream)
+        torch.cuda.synchronize()
+        assert _bwd_count(dtype) == before + 2
+        torch.testing.assert_close(got_out, want_out, rtol=TOL[dtype], atol=TOL[dtype])
+        for name, g, r in zip(("dx", "dW", "db", "dcenters"), got, want):
+            _assert_grad_close(g, r, GRAD_TOL[dtype][name], (b, h, w, n, name))
 
 
 @pytest.mark.cuda
@@ -157,15 +168,102 @@ def test_bins_head_f32_forward_peaked_softmax(cuda):
     holds the softmax alone (with random values, logits this large put the
     plain head 5e-5 off a float64 one). 960 pixels, not a multiple of the
     128-pixel tile."""
-    x, weight, bias, centers = _head_inputs(cuda, torch.float32, 2, 24, 40, 384)
-    grid = lambda t: (8 * t).round() / 8
-    x, weight, bias = grid(x), grid(12 * weight), grid(bias)  # W of std 1.2
+    x, weight, bias, centers = _peaked_inputs(cuda)  # W of std 1.2
     logits = torch.einsum("bchw,nc->bnhw", x, weight.reshape(384, 128)) + bias[:, None, None]
     assert 45 < logits.abs().max().item() < 90
     want = bins_head.fused_bins_head_reference(x, weight, bias, centers)
     got = bins_head.fused_bins_head(x, weight, bias, centers)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+
+
+def _peaked_inputs(device):
+    """Features, W and b on a 1/8 grid, W of std 1.2: logits span about
+    +-60 and are exact in float32 whatever the order of their sums."""
+    x, weight, bias, centers = _head_inputs(device, torch.float32, 2, 24, 40, 384)
+    grid = lambda t: (8 * t).round() / 8
+    return grid(x), grid(12 * weight), grid(bias), centers
+
+
+@pytest.mark.cuda
+def test_bins_head_f32_backward_peaked_softmax(cuda):
+    """The float32 backward on the inputs of the peaked-softmax forward
+    test: each pixel's p sits on a few bins, so p = exp(logit - max) / sum
+    from the forward's saved (max, sum) is wrong by orders of magnitude if
+    the saved max is not the true one, and the logits the backward forms
+    again must be the forward's. 960 pixels: ragged against 128-pixel blocks
+    and 64-pixel tiles."""
+    args = _peaked_inputs(cuda)
+    upstream = torch.randn((2, 1, 24, 40), generator=torch.Generator().manual_seed(9)).to(cuda)
+    want_out, want = _head_grads(bins_head.fused_bins_head_reference, args, upstream)
+    got_out, got = _head_grads(bins_head.fused_bins_head, args, upstream)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_out, want_out, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    for name, g, r in zip(("dx", "dW", "db", "dcenters"), got, want):
+        _assert_grad_close(g, r, GRAD_TOL[torch.float32][name], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,n", HEAD_SHAPES, ids=HEAD_IDS)
+def test_bins_head_f32_forward_saves_softmax_stats(cuda, b, h, w, n):
+    """The float32 forward's saved (max, sum) per pixel against the plain
+    logits' max and sum of exp(logit - max), at rtol 1e-5 (float64 plain
+    logits: the kernel's f32 sums differ from them by ~1e-6 relative)."""
+    x, weight, bias, centers = _head_inputs(cuda, torch.float32, b, h, w, n)
+    out, stats = bins_head._launch(x, weight, bias, centers, stats=True)
+    torch.cuda.synchronize()
+    logits = torch.einsum("bcp,nc->bnp", x.double().reshape(b, 128, h * w),
+                          weight.double().reshape(n, 128)) + bias.double()[:, None]
+    m = logits.amax(dim=1)
+    s = torch.exp(logits - m[:, None]).sum(dim=1)
+    assert stats.shape == (2, b, h * w) and stats.dtype == torch.float32
+    torch.testing.assert_close(stats[0].double(), m, rtol=1e-5, atol=0)
+    torch.testing.assert_close(stats[1].double(), s, rtol=1e-5, atol=0)
+    torch.testing.assert_close(out, bins_head.fused_bins_head_reference(x, weight, bias, centers),
+                               rtol=TOL[torch.float32], atol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_bins_head_f32_forward_saves_stats_only_before_a_backward(cuda, monkeypatch):
+    """Under torch.inference_mode() (as InferenceHelper.predict), under
+    no_grad and with no input that requires a gradient, the float32 forward
+    is asked for no stats; with one, it is."""
+    asked = []
+    launch = bins_head._launch
+
+    def spy(*args, stats=False):
+        asked.append(stats)
+        out, saved = launch(*args, stats=stats)
+        assert (saved is not None) == stats
+        return out, saved
+
+    monkeypatch.setattr(bins_head, "_launch", spy)
+    args = _head_inputs(cuda, torch.float32, 2, 16, 24, 128)
+    with torch.inference_mode():
+        bins_head.fused_bins_head(*args)
+    with torch.no_grad():
+        bins_head.fused_bins_head(args[0], args[1].clone().requires_grad_(), *args[2:])
+    bins_head.fused_bins_head(*args)
+    bins_head.fused_bins_head(args[0].clone().requires_grad_(), *args[1:]).sum().backward()
+    torch.cuda.synchronize()
+    assert asked == [False, False, False, True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w,n", [(3, 33, 49, 384), (16, 208, 272, 256)],
+                         ids=["ragged1617_384", "flagship"])
+def test_bins_head_backward_is_deterministic(cuda, dtype, b, h, w, n):
+    """Two backward calls on the same inputs give the same bits in all four
+    gradients: no float atomics, partials folded in a fixed order."""
+    args = _head_inputs(cuda, dtype, b, h, w, n)
+    upstream = torch.randn((b, 1, h, w), generator=torch.Generator().manual_seed(4)).to(cuda)
+    _, first = _head_grads(bins_head.fused_bins_head, args, upstream)
+    _, second = _head_grads(bins_head.fused_bins_head, args, upstream)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dx", "dW", "db", "dcenters"), first, second):
+        assert torch.equal(a, r), name
 
 
 @pytest.mark.cuda
