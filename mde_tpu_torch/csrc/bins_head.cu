@@ -133,29 +133,24 @@ __device__ __forceinline__ void load_wt_slice(float* wt, const float* w, int n0,
 }
 
 // acc[i][j] += sum_k a[k][i'] b[k][j'] over kK rows of two k-major operands
-// in shared memory: the thread's kA result rows are a's columns ia.. (and
-// ib.. when kA is 8), runs of 4; its 8 result columns are b's columns ja..
-// and jb... Every product of this file that forms logits calls it, so the
-// forward and both backward kernels form each logit with the same FMAs in
-// the same order: bit for bit the same value.
-template <int kK, int kA>
+// in shared memory, a thread's 8 x 8 tile: its result rows are a's columns
+// ia..ia+3 and ib..ib+3, its result columns b's columns ja.. and jb... The
+// forward's logits (a = X, b = W^T) and both products of the backward's
+// pixel kernel run it; the pixel kernel thus forms each logit with the
+// forward's FMAs in the forward's order, bit for bit the same value.
+template <int kK>
 __device__ __forceinline__ void tile_fma(const float* a, int lda, int ia, int ib, const float* b,
-                                         int ldb, int ja, int jb, float (&acc)[kA][8]) {
-  static_assert(kA == 4 || kA == 8, "4 or 8 result rows");
+                                         int ldb, int ja, int jb, float (&acc)[8][8]) {
 #pragma unroll 8
   for (int k = 0; k < kK; ++k) {
     const float4 a0 = *reinterpret_cast<const float4*>(a + k * lda + ia);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + k * lda + ib);
     const float4 b0 = *reinterpret_cast<const float4*>(b + k * ldb + ja);
     const float4 b1 = *reinterpret_cast<const float4*>(b + k * ldb + jb);
-    float av[kA];
-    av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
-    if constexpr (kA == 8) {
-      const float4 a1 = *reinterpret_cast<const float4*>(a + k * lda + ib);
-      av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
-    }
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int i = 0; i < kA; ++i) {
+    for (int i = 0; i < 8; ++i) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
@@ -203,7 +198,7 @@ bins_head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     cp_async_wait<1>();  // the tile and this stage's slice are in
     __syncthreads();
 
-    tile_fma<kSliceCh, 8>(xs + (st % kSlices) * kSliceCh * kFwdPx, kFwdPx, xa, xb,
+    tile_fma<kSliceCh>(xs + (st % kSlices) * kSliceCh * kFwdPx, kFwdPx, xa, xb,
                           wts + (st & 1) * kStageFloats, kWtStride, wa, wb, acc);
 
     if (st % kSlices == kSlices - 1) {  // a chunk is done: fold its 8 bins per pixel
@@ -309,30 +304,37 @@ cudaError_t launch(const float* x, const float* w, const float* b, const float* 
 // parity setting. It runs only under --compute_dtype float32; the default
 // bf16 training takes bins_head_tc.cu.
 //
-// Design. Every product is the forward's register-tiled SGEMM (tile_fma:
-// 8 x 8 outputs a thread, 4 FMAs per float loaded from shared memory), and
-// no float atomics are used, so two calls give the same bits. Two kernels:
-//  1. pixel kernel (dx, db, dc): a block owns 128 pixels of one image, its
-//     feature tile in shared memory once (the forward's loader). For each
-//     128-bin chunk it forms S = X^T W^T from the same W^T slices as the
-//     forward (so the same logits), turns S into dlog in registers, sums p g
-//     and dlog over its pixels (shuffles in the warp, then a fixed order over
-//     the warps through shared memory) into per-block db and dc partials,
-//     stores dlog to shared memory as [bin][px] and accumulates dx += dlog W
-//     over the chunk's bins with W's rows in 32-bin slices on the same
-//     cp.async double buffer. dx stays in 64 registers a thread across the
-//     chunks and is written once, in 16-byte rows where hw % 4 == 0.
-//  2. weight kernel (dW): a block owns 128 bins, holds their W^T in shared
-//     memory, and walks a contiguous range of 64-pixel tiles (across
-//     images), double-buffered by cp.async. Per tile it forms S^T = W X, turns
-//     it into dlog^T from the saved (m, s), the forward's depth and g, stores
-//     it as [bin][px], and accumulates dW += dlog^T X^T, a product over the
-//     tile's pixels in which each thread reads 4 pixels of a row at once (the
-//     rows are 68 floats apart, so 4 or 8 consecutive rows fall on distinct
-//     banks). The grid is one wave over the card's SMs; each block writes one
-//     dW partial, which the wrapper folds in a fixed order.
-// The backward thus forms the logits twice (S, S^T) beside dx and dW: four
-// products, 237 GFLOP at the flagship shape.
+// Design. Every product is a register-tiled SGEMM on the CUDA cores, 8 x 8
+// outputs a thread and 4 FMAs per float loaded from shared memory, where
+// the kernel it replaces loaded one float per FMA. The logits are formed
+// once, and no float atomics are used, so two calls give the same bits.
+// Two kernels:
+//  1. pixel kernel (dx, db, dc, and dlog): a block owns 128 pixels of one
+//     image, its feature tile in shared memory once (the forward's loader).
+//     For each 128-bin chunk it forms S = X^T W^T from the same W^T slices
+//     and the same tile_fma as the forward (so the same logits), turns S
+//     into dlog in registers, sums p g and dlog over its pixels (shuffles
+//     in the warp, then a fixed order over the warps through shared memory)
+//     into per-block db and dc partials, stores dlog to shared memory as
+//     [bin][px], copies it to device memory for kernel 2, and accumulates
+//     dx += dlog W over the chunk's bins with W's rows in 32-bin slices on
+//     the same cp.async double buffer. dx stays in 64 registers a thread
+//     across the chunks and is written once, in 16-byte rows where
+//     hw % 4 == 0. 238 registers and 169 KB of shared memory: one block of
+//     8 warps an SM.
+//  2. weight kernel (dW): a block owns 128 bins and a contiguous range of
+//     64-pixel tiles (across images); each tile's features and dlog arrive
+//     by cp.async, double-buffered, and dW += dlog X^T is a product over the
+//     tile's pixels in which each thread reads 4 pixels of a row at once
+//     (the rows are 68 floats apart, so 4 or 8 consecutive rows fall on
+//     distinct banks). The grid is one wave over the card's SMs; each block
+//     writes one dW partial, which the wrapper folds in a fixed order.
+// dlog goes through device memory rather than being formed again from the
+// logits in kernel 2: (B, n_bins, hw rounded up to 128) f32, 927 MB at the
+// flagship shape, written once and read once (0.55 ms of traffic at 3.35
+// TB/s), where forming S^T = W X again in kernel 2 costs a fourth product
+// (59.3 GFLOP, 0.885 ms at the peak rate): 5.37 against 6.79 ms for both
+// kernels, on an NVIDIA H100 80GB HBM3 at 700 W.
 
 constexpr int kDlogStride = kFwdPx + 4;       // pixel kernel: a dlog row [bin][px], floats
 constexpr int kStagesPerChunk = 2 * kSlices;  // 4 W^T slices (S), then 4 W-row slices (dx)
@@ -342,13 +344,11 @@ constexpr int kDwTileFloats = kChannels * kDwStride;
 constexpr size_t kPixSmem =
     (size_t)(kXFloats + kFwdBins * kDlogStride + 2 * kStageFloats + 2 * kPxWarps * kFwdBins +
              3 * kFwdPx) * sizeof(float);
-constexpr size_t kDwSmem =
-    (size_t)(3 * kDwTileFloats + kChannels * kWtStride + 2 * 3 * kDwPx) * sizeof(float);
+constexpr size_t kDwSmem = (size_t)4 * kDwTileFloats * sizeof(float);  // 2 x (X, dlog)
 static_assert(kSliceCh * kStagesPerChunk / 2 == kFwdBins, "W-row slices cover a chunk");
 static_assert(kFwdThreads == 2 * kFwdBins, "one thread per (bin, db or dc) partial");
 static_assert(kFwdBins == kChannels, "dx reuses the S thread layout");
-static_assert(kDwPx == 16 * 4 && kFwdThreads == 256,
-              "weight kernel: S^T as 16 bin x 16 pixel groups, dW as 4 x 2 warps");
+static_assert(kFwdThreads == 256 && kFwdBins == 128, "weight kernel: dW as 4 x 2 warps");
 
 // W rows n0..n0+kSliceCh-1, all channels, as [bin][kWtStride].
 __device__ __forceinline__ void load_w_rows(float* ws, const float* w, int n0) {
@@ -363,8 +363,9 @@ bins_head_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict_
                            const float* __restrict__ b, const float* __restrict__ c,
                            const float* __restrict__ g, const float* __restrict__ out,
                            const float* __restrict__ stats, float* __restrict__ dx,
-                           float* __restrict__ part_db, float* __restrict__ part_dc, int hw,
-                           int n_bins, int vec_x, int vec_dx) {
+                           float* __restrict__ dlog, float* __restrict__ part_db,
+                           float* __restrict__ part_dc, int hw, int hw_pad, int n_bins,
+                           int vec_x, int vec_dx) {
   extern __shared__ float4 smem[];
   float* xs = reinterpret_cast<float*>(smem);  // [kChannels][kFwdPx]
   float* dls = xs + kXFloats;                  // [kFwdBins][kDlogStride]
@@ -386,7 +387,7 @@ bins_head_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict_
   load_x_tile<kFwdPx, kFwdPx>(xs, x + (size_t)img * kChannels * hw, p0, hw, vec_x != 0);
   load_wt_slice(bufs, w, 0, 0);
   cp_async_commit();
-  if (threadIdx.x < kFwdPx) {  // pixels past hw get p g = 0
+  if (threadIdx.x < kFwdPx) {  // pixels past hw get p g = 0, so dlog = 0
     const int p = p0 + threadIdx.x;
     const bool in = p < hw;
     const size_t at = (size_t)img * hw + (in ? p : 0);
@@ -422,8 +423,8 @@ bins_head_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict_
     const int n0 = st / kStagesPerChunk * kFwdBins, phase = st % kStagesPerChunk;
     const float* buf = bufs + (st & 1) * kStageFloats;
     if (phase < kSlices) {  // S += X^T W^T over this slice's channels
-      tile_fma<kSliceCh, 8>(xs + phase * kSliceCh * kFwdPx, kFwdPx, xa, xb, buf, kWtStride, wa,
-                            wb, acc);
+      tile_fma<kSliceCh>(xs + phase * kSliceCh * kFwdPx, kFwdPx, xa, xb, buf, kWtStride, wa, wb,
+                         acc);
     }
     if (phase == kSlices - 1) {  // S is done: dlog, its sums, and dlog to shared memory
       float bias[8], center[8], sum_dl[8], sum_pg[8];
@@ -469,17 +470,24 @@ bins_head_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict_
         for (int i = 0; i < 8; ++i) acc[i][j] = 0.f;
       }
     }
-    if (phase == kSlices) {  // dlog and the sums are in: the block's db and dc partials
+    if (phase == kSlices) {  // dlog and the sums are in
+      // the block's db and dc partials, over the warps in a fixed order
       const int which = threadIdx.x / kFwdBins, n = threadIdx.x % kFwdBins;
       const float* r = red + which * kPxWarps * kFwdBins + n;
       float v = r[0];
 #pragma unroll
       for (int q = 1; q < kPxWarps; ++q) v += r[q * kFwdBins];
       (which ? part_dc : part_db)[part + n0 + n] = v;
+      // dlog to device memory for the weight kernel, 16-byte rows
+      for (int i = threadIdx.x; i < kFwdBins * (kFwdPx / 4); i += kFwdThreads) {
+        const int r = i / (kFwdPx / 4), q = 4 * (i % (kFwdPx / 4));
+        *reinterpret_cast<float4*>(dlog + ((size_t)img * n_bins + n0 + r) * hw_pad + p0 + q) =
+            *reinterpret_cast<const float4*>(dls + r * kDlogStride + q);
+      }
     }
     if (phase >= kSlices) {  // dx += dlog W over this slice's bins
-      tile_fma<kSliceCh, 8>(dls + (phase - kSlices) * kSliceCh * kDlogStride, kDlogStride, xa,
-                            xb, buf, kWtStride, wa, wb, dxa);
+      tile_fma<kSliceCh>(dls + (phase - kSlices) * kSliceCh * kDlogStride, kDlogStride, xa, xb,
+                         buf, kWtStride, wa, wb, dxa);
     }
     __syncthreads();  // every thread is done with this stage's buffer (and dlog, red)
   }
@@ -507,61 +515,41 @@ bins_head_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict_
   }
 }
 
-struct TileRows {  // per pixel of a weight-kernel tile: softmax max, g / sum, depth
-  float max[kDwPx], scale[kDwPx], depth[kDwPx];
-};
-
 __global__ void __launch_bounds__(kFwdThreads, 1)
-bins_head_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                            const float* __restrict__ b, const float* __restrict__ c,
-                            const float* __restrict__ g, const float* __restrict__ out,
-                            const float* __restrict__ stats, float* __restrict__ part_dw,
-                            int batch, int hw, int n_bins, int vec) {
+bins_head_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict__ dlog,
+                            float* __restrict__ part_dw, int batch, int hw, int hw_pad,
+                            int n_bins, int vec) {
   extern __shared__ float4 smem[];
   float* xts = reinterpret_cast<float*>(smem);  // 2 x [kChannels][kDwStride]
-  float* dls = xts + 2 * kDwTileFloats;         // [kFwdBins][kDwStride]
-  float* wts = dls + kDwTileFloats;             // [kChannels][kWtStride], the block's W^T
-  TileRows* rows = reinterpret_cast<TileRows*>(wts + kChannels * kWtStride);  // 2
+  float* dlt = xts + 2 * kDwTileFloats;         // 2 x [kFwdBins][kDwStride]
 
   const int n0 = blockIdx.y * kFwdBins;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // S^T: the thread's bins wa.., wb.. and pixels xq..xq+3
-  const int bg = (warp & 1) * 8 + (lane & 7);
-  const int xq = ((warp >> 1) * 4 + (lane >> 3)) * 4;
-  const int wa = bg * 4, wb = kFwdBins / 2 + bg * 4;
-  // dW: the thread's bins ib + 4 r and channels jc + 8 r, r < 8
+  // the thread's bins ib + 4 r and channels jc + 8 r, r < 8
   const int ib = (warp & 3) * 32 + (lane >> 3), jc = (warp >> 2) * 64 + (lane & 7);
 
   const int per_img = (hw + kDwPx - 1) / kDwPx, total = batch * per_img;
   const int per_block = (total + gridDim.x - 1) / gridDim.x;
   const int begin = min(total, (int)blockIdx.x * per_block), end = min(total, begin + per_block);
-  const size_t plane = (size_t)batch * hw;
 
-  auto load = [&](int buf, int tile) {
+  auto load = [&](int buf, int tile) {  // features and dlog of one tile
     const int img = tile / per_img, p0 = (tile % per_img) * kDwPx;
     load_x_tile<kDwPx, kDwStride>(xts + buf * kDwTileFloats, x + (size_t)img * kChannels * hw,
                                   p0, hw, vec != 0);
-    if (threadIdx.x < kDwPx) {  // pixels past hw get p g = 0
-      const int p = p0 + threadIdx.x;
-      const bool in = p < hw;
-      const size_t at = (size_t)img * hw + (in ? p : 0);
-      rows[buf].max[threadIdx.x] = in ? stats[at] : 0.f;
-      rows[buf].scale[threadIdx.x] = in ? g[at] / stats[plane + at] : 0.f;
-      rows[buf].depth[threadIdx.x] = in ? out[at] : 0.f;
+    for (int i = threadIdx.x; i < kFwdBins * (kDwPx / 4); i += kFwdThreads) {
+      const int r = i / (kDwPx / 4), q = 4 * (i % (kDwPx / 4));
+      cp_async16(dlt + buf * kDwTileFloats + r * kDwStride + q,
+                 dlog + ((size_t)img * n_bins + n0 + r) * hw_pad + p0 + q, 16);
     }
   };
 
-  for (int k0 = 0; k0 < kChannels; k0 += kSliceCh) load_wt_slice(wts + k0 * kWtStride, w, n0, k0);
   if (begin < end) load(0, begin);
   cp_async_commit();
-  float bias[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) bias[j] = __ldg(b + n0 + (j < 4 ? wa + j : wb + j - 4));
   float dw[8][8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
 #pragma unroll
-    for (int s = 0; s < 8; ++s) dw[r][s] = 0.f;
+    for (int q = 0; q < 8; ++q) dw[r][q] = 0.f;
   }
 
   for (int tile = begin, buf = 0; tile < end; ++tile, buf ^= 1) {
@@ -570,34 +558,8 @@ bins_head_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict
     if (tile + 1 < end) load(buf ^ 1, tile + 1);
     cp_async_commit();
     const float* xs = xts + buf * kDwTileFloats;
-    const TileRows& tr = rows[buf];
-    const float* c_img = c + (size_t)(tile / per_img) * n_bins + n0;
-
-    // S^T = W X over the channels: the thread's 4 pixels x 8 bins
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-    }
-    tile_fma<kChannels, 4>(xs, kDwStride, xq, 0, wts, kWtStride, wa, wb, s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = j < 4 ? wa + j : wb + j - 4;
-      const float center = __ldg(c_img + n);
-      float dl[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int px = xq + i;
-        const float pgv = expf(s[i][j] + bias[j] - tr.max[px]) * tr.scale[px];
-        dl[i] = pgv * (center - tr.depth[px]);
-      }
-      *reinterpret_cast<float4*>(dls + n * kDwStride + xq) = make_float4(dl[0], dl[1], dl[2],
-                                                                         dl[3]);
-    }
-    __syncthreads();  // dlog^T of the tile is in
-
-    // dW += dlog^T X^T over the tile's pixels, 4 at a time
+    const float* dls = dlt + buf * kDwTileFloats;
+    // dW += dlog X^T over the tile's pixels, 4 at a time
 #pragma unroll 2
     for (int k = 0; k < kDwPx; k += 4) {
       float4 a[8], v[8];
@@ -620,7 +582,6 @@ bins_head_bwd_weight_kernel(const float* __restrict__ x, const float* __restrict
   }
 
   // this block's partial; a block with no tiles writes zeros
-  cp_async_wait<0>();
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     float* row = part_dw + ((size_t)blockIdx.x * n_bins + n0 + ib + 4 * r) * kChannels + jc;
@@ -648,8 +609,8 @@ cudaError_t weight_blocks(int batch, int hw, int n_bins, int device, int* blocks
 
 cudaError_t launch_bwd(const float* x, const float* w, const float* b, const float* c,
                        const float* g, const float* out, const float* stats, float* dx,
-                       float* part_db, float* part_dc, float* part_dw, int dw_blocks, int batch,
-                       int hw, int n_bins, cudaStream_t stream) {
+                       float* dlog, float* part_db, float* part_dc, float* part_dw,
+                       int dw_blocks, int batch, int hw, int n_bins, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(bins_head_bwd_pixel_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kPixSmem);
@@ -659,14 +620,13 @@ cudaError_t launch_bwd(const float* x, const float* w, const float* b, const flo
   if (err != cudaSuccess) return err;
   const int vec_x = hw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int vec_dx = hw % 4 == 0 && reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  const dim3 grid1((hw + kFwdPx - 1) / kFwdPx, batch);
-  bins_head_bwd_pixel_kernel<<<grid1, kFwdThreads, kPixSmem, stream>>>(
-      x, w, b, c, g, out, stats, dx, part_db, part_dc, hw, n_bins, vec_x, vec_dx);
+  const int blocks = (hw + kFwdPx - 1) / kFwdPx, hw_pad = blocks * kFwdPx;
+  bins_head_bwd_pixel_kernel<<<dim3(blocks, batch), kFwdThreads, kPixSmem, stream>>>(
+      x, w, b, c, g, out, stats, dx, dlog, part_db, part_dc, hw, hw_pad, n_bins, vec_x, vec_dx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid2(dw_blocks, n_bins / kFwdBins);
-  bins_head_bwd_weight_kernel<<<grid2, kFwdThreads, kDwSmem, stream>>>(
-      x, w, b, c, g, out, stats, part_dw, batch, hw, n_bins, vec_x);
+  bins_head_bwd_weight_kernel<<<dim3(dw_blocks, n_bins / kFwdBins), kFwdThreads, kDwSmem,
+                                stream>>>(x, dlog, part_dw, batch, hw, hw_pad, n_bins, vec_x);
   return cudaGetLastError();
 }
 
@@ -703,23 +663,26 @@ extern "C" int mde_bins_head_bwd_weight_blocks(int batch, int hw, int n_bins, in
 
 // x, w, b, c as for the forward; g: (batch, hw) f32, the gradient of the
 // depth; out and stats: the forward's depth and (max, sum). Writes dx:
-// (batch, 128, hw) f32; part_db, part_dc: (batch, ceil(hw / 128), n_bins)
-// f32 partials; part_dw: (dw_blocks, n_bins, 128) f32 partials, dw_blocks
-// from mde_bins_head_bwd_weight_blocks. n_bins is a multiple of 128. All
+// (batch, 128, hw) f32; dlog: (batch, n_bins, P) f32 scratch, P = hw
+// rounded up to the pixel kernel's 128 pixels a block (16-byte aligned);
+// part_db, part_dc: (batch, P / 128, n_bins) f32 partials; part_dw:
+// (dw_blocks, n_bins, 128) f32 partials, dw_blocks from
+// mde_bins_head_bwd_weight_blocks. n_bins is a multiple of 128. All
 // contiguous, on `device`, whose stream `stream` is. Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int mde_bins_head_bwd(const void* x, const void* w, const void* b, const void* c,
                                  const void* g, const void* out, const void* stats, void* dx,
-                                 void* part_db, void* part_dc, void* part_dw, int dw_blocks,
-                                 int batch, int hw, int n_bins, int device, void* stream) {
+                                 void* dlog, void* part_db, void* part_dc, void* part_dw,
+                                 int dw_blocks, int batch, int hw, int n_bins, int device,
+                                 void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   return (int)launch_bwd(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
       static_cast<const float*>(c), static_cast<const float*>(g), static_cast<const float*>(out),
-      static_cast<const float*>(stats), static_cast<float*>(dx), static_cast<float*>(part_db),
-      static_cast<float*>(part_dc), static_cast<float*>(part_dw), dw_blocks, batch, hw, n_bins,
-      static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(stats), static_cast<float*>(dx), static_cast<float*>(dlog),
+      static_cast<float*>(part_db), static_cast<float*>(part_dc), static_cast<float*>(part_dw),
+      dw_blocks, batch, hw, n_bins, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mde_cuda_error_string(int err) {

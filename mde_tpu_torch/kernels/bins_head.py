@@ -190,7 +190,7 @@ def library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mde_bins_head_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         lib.mde_bins_head_fwd.restype = i32
-        lib.mde_bins_head_bwd.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+        lib.mde_bins_head_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
         lib.mde_bins_head_bwd.restype = i32
         lib.mde_bins_head_bwd_pixels_per_block.argtypes = []
         lib.mde_bins_head_bwd_pixels_per_block.restype = i32
@@ -247,24 +247,28 @@ def _launch(x, weight, bias, centers, stats=False):
 def _launch_bwd(x, weight, bias, centers, grad, out, stats):
     """The float32 backward kernels, from the forward's depth and stats;
     returns (dx, dW (n_bins, 128), db, dcenters) with the per-block partials
-    folded in a fixed order."""
+    folded in a fixed order. The pixel kernel hands dlog to the weight
+    kernel through a (B, n_bins, H*W rounded up to 128) float32 scratch
+    buffer: 927 MB at the flagship shape (16 x 208 x 272, 256 bins)."""
     global BWD_LAUNCHES
     lib = library()
     b, _, h, w = x.shape
     hw, n = h * w, weight.shape[0]
     g = grad.float().contiguous()
-    blocks = -(-hw // lib.mde_bins_head_bwd_pixels_per_block())
+    px_per_block = lib.mde_bins_head_bwd_pixels_per_block()
+    blocks = -(-hw // px_per_block)
     dw_blocks = lib.mde_bins_head_bwd_weight_blocks(b, hw, n, x.device.index)
     if dw_blocks <= 0:
         raise RuntimeError("bins-head backward: no launch shape for the weight kernel "
                            "on this device")
     dx = torch.empty_like(x)
+    dlog = torch.empty((b, n, blocks * px_per_block), dtype=torch.float32, device=x.device)
     part_dbc = torch.empty((2, b, blocks, n), dtype=torch.float32, device=x.device)
     part_dw = torch.empty((dw_blocks, n, _CHANNELS), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.mde_bins_head_bwd(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), centers.data_ptr(),
-        g.data_ptr(), out.data_ptr(), stats.data_ptr(), dx.data_ptr(),
+        g.data_ptr(), out.data_ptr(), stats.data_ptr(), dx.data_ptr(), dlog.data_ptr(),
         part_dbc[0].data_ptr(), part_dbc[1].data_ptr(), part_dw.data_ptr(), dw_blocks,
         b, hw, n, x.device.index, stream)
     _raise_on(lib, err, "bins-head backward")
