@@ -305,10 +305,9 @@ cudaError_t launch(const float* x, const float* w, const float* b, const float* 
 // bf16 training takes bins_head_tc.cu.
 //
 // Design. Every product is a register-tiled SGEMM on the CUDA cores, 8 x 8
-// outputs a thread and 4 FMAs per float loaded from shared memory, where
-// the kernel it replaces loaded one float per FMA. The logits are formed
-// once, and no float atomics are used, so two calls give the same bits.
-// Two kernels:
+// outputs a thread and 4 FMAs per float loaded from shared memory. The
+// logits are formed once, and no float atomics are used, so two calls give
+// the same bits. Two kernels:
 //  1. pixel kernel (dx, db, dc, and dlog): a block owns 128 pixels of one
 //     image, its feature tile in shared memory once (the forward's loader).
 //     For each 128-bin chunk it forms S = X^T W^T from the same W^T slices
@@ -320,7 +319,7 @@ cudaError_t launch(const float* x, const float* w, const float* b, const float* 
 //     dx += dlog W over the chunk's bins with W's rows in 32-bin slices on
 //     the same cp.async double buffer. dx stays in 64 registers a thread
 //     across the chunks and is written once, in 16-byte rows where
-//     hw % 4 == 0. 238 registers and 169 KB of shared memory: one block of
+//     hw % 4 == 0. 252 registers and 169 KB of shared memory: one block of
 //     8 warps an SM.
 //  2. weight kernel (dW): a block owns 128 bins and a contiguous range of
 //     64-pixel tiles (across images); each tile's features and dlog arrive

@@ -11,11 +11,10 @@ picks the kernel family: float32 goes to the CUDA-core kernels of
 `csrc/bins_head_tc.cu`. Each family's forward saves each pixel's softmax
 (max, sum) for its backward, which then forms p without running the softmax
 again; the float32 forward does so only when a backward can follow (grad
-enabled and an input that requires it), so serving writes nothing more.
-For CPU tensors
-it runs `fused_bins_head_reference`, the plain PyTorch version with the same
-bf16 rounding points: autograd differentiates it in f32, and in bf16
-`PlainBf16Head` gives the JAX kernel's gradients. There is no fallback
+enabled and an input that requires it), so serving writes nothing more. For
+CPU tensors it runs `fused_bins_head_reference`, the plain PyTorch version
+with the same bf16 rounding points: autograd differentiates it in f32, and in
+bf16 `PlainBf16Head` gives the JAX kernel's gradients. There is no fallback
 between the three: a CUDA tensor the kernels cannot take raises.
 
 The model (models/unet_adaptive_bins.py) takes this path only where
