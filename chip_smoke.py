@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch / CUDA port (`mde_tpu_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py              # from the repository root
-    python3 chip_smoke.py --profile DIR   # also write profiler tables to DIR
+    python3 chip_smoke.py --profile DIR   # also write profiler tables to DIR,
+                                          # and the cue ops' share of the A step
 
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. toolchain: torch, CUDA, nvcc, device capability, triton, card and power
@@ -35,7 +36,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
   6. one step at batch 2 through the kernels against the same step through
      the unfused head and the plain chamfer, in float32 (the CUDA-core head
      kernels) and under bf16 autocast (the tensor-core ones)
-  7. one JSON line on the kernels, then the result line.
+  7. the cue configurations of the paper's params files, with seeded random
+     weights: (A) glove-25d semantics + ade20k_swin_human_sizes instances at
+     the input, a 73-channel stem; (B) glove-25d-inst-areas + coco before the
+     mViT, a 198-channel patch conv and conv3x3; (C) A's cues on the
+     noAdaBins head:
+     - the cue embedders on the card against the same embedders on the CPU,
+       on labels with -1 and out-of-range values (equal, NaN alike, no
+       device-side assert)
+     - A and B, and the no-cue model beside them, through make_eval_step +
+       validate, float32, 20 frames of 480x640 at batch 1 (with --profile,
+       4 more under the profiler): one float32 head-forward launch a frame and no
+       other kernel, each frame's depth within 1e-4 m of the plain head's, the
+       card's masked metrics within 1e-4 relative of float64 `compute_errors`
+       on the host, every metric finite
+     - A through the phase-5 training step (2 + 8 steps, 1/2/1 launches a
+       step, every parameter changed, the CueMLPs and the wide stem too)
+     - B through the phase-6 step check, float32 and bf16, the CueMLPs'
+       gradients held with conv_out's and the regressor's
+     - C: one training step at batch 16 and one eval frame, finite, and no
+       kernel launched (no bins head, no chamfer)
+  8. one JSON line on the kernels (launches summed over the main paths:
+     serving, training, the eval and cue training runs; the float32 head
+     backward, which no main path runs, from the float32 step checks), then
+     the result line.
 
 float32 comparisons run with TF32 off for both cuDNN and cuBLAS. The script
 imports no JAX: it is the quickest proof that the port runs on the card.
@@ -62,6 +86,24 @@ WARMUP_STEPS, TIMED_STEPS = 2, 8
 N_BINS = 256
 CHUNKED_BINS = 1024  # above the 640 bins the bf16 kernels keep resident
 SEED = 0
+EVAL_FRAMES = 20
+# the cue configurations, from params/args_train_nyu_efficientnet-b1_sem_glove-
+# 25d_inst_ade20k_swin_human_sizes_insertion_point_input.txt (A), params/args_
+# train_nyu_efficientnet-b1_sem_glove-25d-inst-areas_inst_coco.txt (B, whose
+# insertion point is the parser's default, before-attn) and params/args_train_
+# nyu_efficientnet-b1-noAdaBins_sem_glove-25d_inst_ade20k_swin_human_sizes_
+# insertion_point_input.txt (C)
+CUE_CONFIGS = {
+    "A": dict(use_semantics="glove-25d", use_instance_segmentation="ade20k_swin_human_sizes",
+              insertion_point="input"),
+    "B": dict(use_semantics="glove-25d-inst-areas", use_instance_segmentation="coco",
+              insertion_point="before-attn"),
+    "C": dict(encoder_name="efficientnet-b1-noAdaBins", use_semantics="glove-25d",
+              use_instance_segmentation="ade20k_swin_human_sizes", insertion_point="input"),
+}
+CUE_MLP_PREFIXES = ("semantics_areas_fc.", "semantics_absolute_sizes_fc.",
+                    "instance_areas_fc.", "instance_absolute_sizes_fc.")
+METRIC_TOL = 1e-4  # card's float32 masked metrics vs float64 on the host, relative
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # rtol = atol
 # gradients, of the tensor's largest value; bf16 per gradient: dx is rounded
 # to bf16, dW and db are f32 sums on both sides, as in the JAX kernel, and
@@ -432,10 +474,9 @@ def serve(bins_head, gen, profile_dir):
         outputs.append(helper.predict(frame))  # ends in a device->host copy
         latencies.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
-    launches = counts["bins_head_fwd"]
     peak = torch.cuda.max_memory_allocated()
     print(f"serve: {REQUESTS} requests of {FRAME_HW[0]}x{FRAME_HW[1]}, kernel launches "
-          f"{launches}, median latency {statistics.median(latencies):.3f} ms "
+          f"{counts['bins_head_fwd']}, median latency {statistics.median(latencies):.3f} ms "
           f"(all: {', '.join(f'{v:.3f}' for v in latencies)}), "
           f"max_memory_allocated {peak} bytes")
     check(counts == {**{k: 0 for k in counts}, "bins_head_fwd": REQUESTS},
@@ -465,7 +506,7 @@ def serve(bins_head, gen, profile_dir):
     if profile_dir is not None:
         profile(helper, frames, Path(profile_dir))
     del helper
-    return launches
+    return counts
 
 
 def request_ms(helper, frames):
@@ -529,7 +570,9 @@ def flagship_args(**kw):
     import types
     base = dict(n_bins=N_BINS, min_depth=1e-3, max_depth=10.0, norm="linear",
                 encoder_name="efficientnet-b1", use_semantics=None,
-                use_instance_segmentation=None, image="rgb", w_chamfer=0.1, chamfer=True,
+                use_instance_segmentation=None, insertion_point="before-attn", image="rgb",
+                w_chamfer=0.1, chamfer=True, dataset="nyu", min_depth_eval=1e-3,
+                max_depth_eval=10.0, eigen_crop=True, garg_crop=False,
                 epochs=25, lr=0.000357, wd=0.1, div_factor=25.0, final_div_factor=100.0,
                 same_lr=False, encoder_lr_factor=1.0, seed=SEED, use_fused_head=True,
                 use_pallas_chamfer=True,
@@ -551,20 +594,68 @@ def read_counts():
             "bins_head_tc_bwd": bins_head.TC_BWD_LAUNCHES, "chamfer": chamfer.LAUNCHES}
 
 
-def train(state_dict, gen, profile_dir):
-    """Phase 5: the flagship training step; returns the launches per kernel
-    over the timed steps."""
+def synthetic_cues(n, hw, inst_mode, gen):
+    """Raw cue maps (N, 1, H, W) as the loaders give them: semantic labels
+    uniform in [0, 150); instance labels as four rectangular blocks on the
+    background class (ade20k_swin 0-100, background 100; coco 0-80,
+    background 0), areas each block's pixel count (0 on the background)."""
+    h, w = hw
+    coco = inst_mode == "coco"
+    background, n_classes = (0, 81) if coco else (100, 101)
+
+    def draw(lo, hi):
+        return int(torch.randint(lo, hi, (1,), generator=gen))
+
+    labels = torch.full((n, 1, h, w), background, dtype=torch.int32)
+    areas = torch.zeros((n, 1, h, w))
+    for i in range(n):
+        block = torch.zeros((h, w), dtype=torch.long)
+        for b in range(1, 5):
+            y0, x0 = draw(0, h // 2), draw(0, w // 2)
+            y1, x1 = y0 + draw(h // 8, h // 2), x0 + draw(w // 8, w // 2)
+            labels[i, 0, y0:y1, x0:x1] = draw(1 if coco else 0, n_classes - 1)
+            block[y0:y1, x0:x1] = b
+        counts = torch.bincount(block.flatten(), minlength=5)
+        counts[0] = 0
+        areas[i, 0] = counts[block].float()
+    return {"semantics": torch.randint(0, 150, (n, 1, h, w), generator=gen,
+                                       dtype=torch.int32),
+            "instance_labels": labels, "instance_areas": areas}
+
+
+def train_batch(args, gen, n, hw):
+    """Image N(0,1), depth U(0.05, 9.95) m, and the raw cue maps the
+    configuration reads, on the card."""
+    batch = {"image": torch.randn((n, 3, *hw), generator=gen),
+             "depth": 0.05 + 9.9 * torch.rand((n, 1, *hw), generator=gen)}
+    if args.use_semantics or args.use_instance_segmentation:
+        batch.update(synthetic_cues(n, hw, args.use_instance_segmentation, gen))
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def cue_embedders(args, device="cuda"):
+    from mde_tpu_torch.cues import InstanceEmbedder, SemanticsEmbedder
+    return SemanticsEmbedder(args, device), InstanceEmbedder(args, device)
+
+
+def seeded_model(args, gen):
+    """The configuration's model on the card with seeded random weights."""
     from mde_tpu_torch.models import build_model
+    model = build_model(args)
+    model.load_state_dict(seeded_state_dict(model, gen), strict=True)
+    return model.cuda()
+
+
+def train(args, model, gen, profile_dir, label):
+    """The flagship training step on `model`, with the configuration's cue
+    embedders; returns (launches per kernel over the timed steps, median step
+    ms, peak bytes)."""
     from mde_tpu_torch.train import create_train_state, make_train_step
 
-    args = flagship_args()
-    model = build_model(args).cuda()
-    model.load_state_dict(state_dict, strict=True)
+    embedders = cue_embedders(args)
     state = create_train_state(model, args, steps_per_epoch=2693)
-    step = make_train_step(args)
-    image = torch.randn((TRAIN_BATCH, 3, *TRAIN_HW), generator=gen).cuda()
-    depth = (0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)).cuda()
-    batch = {"image": image, "depth": depth}
+    step = make_train_step(args, *embedders)
+    batch = train_batch(args, gen, TRAIN_BATCH, TRAIN_HW)
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
 
     for _ in range(WARMUP_STEPS):
@@ -584,29 +675,81 @@ def train(state_dict, gen, profile_dir):
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     median = statistics.median(step_ms)
-    print(f"train: {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up, batch {TRAIN_BATCH} of "
+    print(f"{label}: {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up, batch {TRAIN_BATCH} of "
           f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, bf16 autocast: median step {median:.3f} ms "
           f"(all: {', '.join(f'{v:.3f}' for v in step_ms)}), "
           f"{1e3 * TRAIN_BATCH / median:.2f} images/s, max_memory_allocated {peak} bytes")
     for i, m in enumerate(metrics):
-        print(f"train: step {WARMUP_STEPS + i}: loss {m['loss'].item():.6f} silog "
+        print(f"{label}: step {WARMUP_STEPS + i}: loss {m['loss'].item():.6f} silog "
               f"{m['silog'].item():.6f} chamfer {m['chamfer'].item():.6f} launches "
               f"{per_step[i]}")
         check(all(np.isfinite(v.item()) for v in m.values()), f"step {i}: metric not finite")
         check(per_step[i] == STEP_LAUNCHES,
-              f"step {i}: launches {per_step[i]}, expected {STEP_LAUNCHES}")
+              f"{label} step {i}: launches {per_step[i]}, expected {STEP_LAUNCHES}")
     changed = sum(not torch.equal(p.detach(), before[k]) for k, p in model.named_parameters())
-    print(f"train: {changed} of {len(before)} parameter tensors changed; step count "
-          f"{state.step}")
+    cue_mlps = sorted({k.split(".")[0] for k in before if k.startswith(CUE_MLP_PREFIXES)})
+    print(f"{label}: {changed} of {len(before)} parameter tensors changed (stem "
+          f"{tuple(model.encoder.original_model.conv_stem.weight.shape)}, CueMLPs "
+          f"{cue_mlps}); step count {state.step}")
     check(changed == len(before), "some parameters did not change")
 
-    share = train_kernel_share(step, state, batch, profile_dir)
-    print(f"train: profile over 2 steps: {share}")
-    del state, model, before
-    return launches
+    share = train_kernel_share(step, state, batch, profile_dir, label)
+    print(f"{label}: profile over 2 steps: {share}")
+    if profile_dir is not None and cue_mlps:
+        print(f"{label}: {cue_share(args, state, batch)}")
+    del state, before
+    return launches, median, peak
 
 
-def train_kernel_share(step, state, batch, profile_dir):
+def cue_share(args, state, batch):
+    """Device time per step of the cue ops, over 2 profiled steps: the
+    embedders (a record_function range each), and the forward and backward
+    convolutions of the CueMLPs and of the cue-widened stem, found by their
+    weight shapes. The concatenations and the CueMLPs' ReLUs are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
+    from mde_tpu_torch.train import make_train_step
+
+    def annotated(fn, name):
+        def call(*a):
+            with record_function(name):
+                return fn(*a)
+        return call
+
+    sem, inst = cue_embedders(args)
+    step = make_train_step(args, annotated(sem, "cues.semantics"),
+                           annotated(inst, "cues.instances"))
+    model = state.model
+    stem = tuple(model.encoder.original_model.conv_stem.weight.shape)
+    weights = {stem: "stem"}
+    for name, m in model.named_modules():
+        if name.split(".")[0] + "." in CUE_MLP_PREFIXES and isinstance(m, torch.nn.Conv2d):
+            weights[tuple(m.weight.shape)] = "CueMLPs"
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in device_events(prof))
+    parts = {"embedders": 0.0, "stem": 0.0, "CueMLPs": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in ("cues.semantics", "cues.instances"):
+            parts["embedders"] += e.device_time_total
+        elif e.name in ("aten::convolution", "aten::convolution_backward"):
+            hit = [weights[tuple(sh)] for sh in e.input_shapes if tuple(sh) in weights]
+            if hit:
+                parts[hit[0]] += e.device_time_total
+    if total == 0:
+        return "cue ops: no device time in the profile, not measured"
+    return ("cue ops, device time per step: " + ", ".join(
+        f"{k} {v / 2e3:.3f} ms ({100 * v / total:.2f}%)" for k, v in parts.items())
+        + f" (stem weight {stem}); together {sum(parts.values()) / 2e3:.3f} ms, "
+        f"{100 * sum(parts.values()) / total:.2f}% of {total / 2e3:.3f} ms of device time")
+
+
+def train_kernel_share(step, state, batch, profile_dir, label):
     """Device time of the port's kernels against all device time, over 2
     profiled steps, and the device's busy share of the wall."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -627,7 +770,7 @@ def train_kernel_share(step, state, batch, profile_dir):
     if profile_dir is not None:
         out = Path(profile_dir)
         out.mkdir(parents=True, exist_ok=True)
-        (out / "chip_smoke_profile_train.txt").write_text(prof.key_averages().table(
+        (out / f"chip_smoke_profile_{label}.txt").write_text(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=40, max_name_column_width=90))
     if total == 0:
         return "no device time in the profile: kernel share not measured"
@@ -639,35 +782,38 @@ def train_kernel_share(step, state, batch, profile_dir):
             f"{100 * busy_us / wall_us:.1f}%, {n_events} device events")
 
 
-def step_against_plain(state_dict, gen, dtype):
+def step_against_plain(state_dict, gen, dtype, cue=None):
     """Phase 6: one step at batch 2 through the kernels and through the
     unfused head and the plain chamfer, on the same weights and batch, in
-    float32 or under bf16 autocast; returns the kernel run's launches."""
+    float32 or under bf16 autocast, in the flagship configuration or the cue
+    configuration `cue`; returns the kernel run's launches."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.train import make_loss_fn
 
-    image = torch.randn((2, 3, *TRAIN_HW), generator=gen).cuda()
-    depth = (0.05 + 9.9 * torch.rand((2, 1, *TRAIN_HW), generator=gen)).cuda()
-    label = "float32" if dtype == torch.float32 else "bf16 autocast"
+    config = CUE_CONFIGS.get(cue, {})
+    batch = train_batch(flagship_args(**config), gen, 2, TRAIN_HW)
+    label = ("float32" if dtype == torch.float32 else "bf16 autocast") + (
+        f", config {cue}" if cue else "")
     tol = STEP_TOL[dtype]
     results = {}
     for kernels in (True, False):
         args = flagship_args(compute_dtype="float32" if dtype == torch.float32 else "bfloat16",
-                             use_fused_head=kernels, use_pallas_chamfer=kernels)
+                             use_fused_head=kernels, use_pallas_chamfer=kernels, **config)
         model = build_model(args).cuda().train()
         model.load_state_dict(state_dict, strict=True)
-        loss_fn = make_loss_fn(args)
+        loss_fn = make_loss_fn(args, *cue_embedders(args))
         generator = torch.Generator(device="cuda").manual_seed(SEED)
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss, l_dense, l_chamfer = loss_fn(model, {"image": image, "depth": depth}, generator)
+        loss, l_dense, l_chamfer = loss_fn(model, batch, generator)
         loss.backward()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
         grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
-                 if k.startswith(("conv_out.", "adaptive_bins_layer.regressor."))}
+                 if k.startswith(("conv_out.", "adaptive_bins_layer.regressor.")
+                                 + CUE_MLP_PREFIXES)}
         results[kernels] = (loss.item(), l_dense.item(), l_chamfer.item(), grads, counts)
         print(f"step check {label}, {'kernels' if kernels else 'plain'}: loss {loss.item():.7f} "
               f"silog {l_dense.item():.7f} chamfer {l_chamfer.item():.7e}, launches {counts}, "
@@ -680,25 +826,209 @@ def step_against_plain(state_dict, gen, dtype):
     kern, plain = results[True], results[False]
     for name, a, b in zip(("loss", "silog", "chamfer"), kern[:3], plain[:3]):
         check(abs(a - b) <= tol * abs(b), f"step check {label} {name}: {a} vs {b}")
-    worst = max((max_rel(kern[3][k], plain[3][k]), k) for k in plain[3])
+    errs = {k: max_rel(kern[3][k], plain[3][k]) for k in plain[3]}
+    worst = max((e, k) for k, e in errs.items())
+    cue_worst = max((e for k, e in errs.items() if k.startswith(CUE_MLP_PREFIXES)),
+                    default=None)
     print(f"step check {label}: loss, silog, chamfer within rtol {tol}; largest gradient "
-          f"error {worst[0]:.3e} of the largest value ({worst[1]}; tolerance {tol})")
+          f"error {worst[0]:.3e} of the largest value ({worst[1]}; tolerance {tol}) over "
+          f"{len(errs)} tensors" + ("" if cue_worst is None else
+                                    f"; CueMLPs' largest {cue_worst:.3e}"))
     check(worst[0] <= tol, f"step check {label} gradient {worst}")
     return kern[4]
+
+
+def check_embedders(gen):
+    """The cue embedders of A, B and C on the card against the same
+    embedders on the CPU, on labels in [-200, 200) with -1 and values past
+    every table: gathers and area maps equal, NaN in the same places, and no
+    device-side assert (the synchronize would raise it)."""
+    shape = (2, 1, *FRAME_HW)
+    labels = torch.randint(-200, 200, shape, generator=gen, dtype=torch.int32)
+    labels.view(-1)[:4] = torch.tensor([-1, 150, -151, 1000], dtype=torch.int32)
+    areas = torch.randint(0, 5000, shape, generator=gen).float()
+    for name in ("A", "B"):  # C embeds as A does
+        args = flagship_args(**CUE_CONFIGS[name])
+        (sem_gpu, inst_gpu), (sem_cpu, inst_cpu) = cue_embedders(args), cue_embedders(args, "cpu")
+        got = [*sem_gpu(labels.cuda()), *inst_gpu(labels.cuda(), areas.cuda())]
+        torch.cuda.synchronize()
+        want = [*sem_cpu(labels), *inst_cpu(labels, areas)]
+        names = ("semantics raw", "semantics", "instance raw", "instance labels",
+                 "instance areas")
+        nans = []
+        for what, g, w in zip(names, got, want):
+            g = g.cpu()
+            check(g.shape == w.shape and g.dtype == w.dtype, f"{name} {what}: {g.shape}")
+            check(torch.equal(g.isnan(), w.isnan()) if g.is_floating_point() else True,
+                  f"{name} {what}: NaN in other places on the card")
+            check(torch.equal(torch.nan_to_num(g, 7.0), torch.nan_to_num(w, 7.0))
+                  if g.is_floating_point() else torch.equal(g, w),
+                  f"{name} {what}: card and CPU differ")
+            nans.append(int(g.isnan().sum()) if g.is_floating_point() else 0)
+        print(f"embedders {name} ({args.use_semantics}, {args.use_instance_segmentation}) on "
+              f"{shape}: card equals CPU in every channel; NaN values per output "
+              f"{dict(zip(names, nans))}; no device-side assert")
+
+
+def eval_frames(args, gen):
+    """EVAL_FRAMES host batches of one 480x640 frame: image N(0,1), depth
+    U(0.05, 9.95) m with a block of zeros, and the configuration's raw cues
+    if it has any."""
+    frames = []
+    for _ in range(EVAL_FRAMES):
+        depth = 0.05 + 9.9 * torch.rand((1, 1, *FRAME_HW), generator=gen)
+        depth[:, :, 100:180, 200:330] = 0.0
+        frames.append({"image": torch.randn((1, 3, *FRAME_HW), generator=gen), "depth": depth})
+        if args.use_semantics or args.use_instance_segmentation:
+            frames[-1].update(synthetic_cues(1, FRAME_HW, args.use_instance_segmentation, gen))
+    return frames
+
+
+def run_validate(args, model, frames):
+    """validate over the frames, each step timed to its end and its
+    outputs, and each forward's prediction, kept; returns (metrics, val
+    SILog, per-frame (ms, silog, metrics), predictions)."""
+    from mde_tpu_torch.train import make_eval_step, validate
+    eval_step = make_eval_step(args, *cue_embedders(args))
+    steps, preds = [], []
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        out = eval_step(*a)
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t0) * 1e3, *out))
+        return out
+
+    hook = model.register_forward_hook(lambda m, i, out: preds.append(out[1].clone()))
+    try:
+        vals, val_si = validate(args, timed, model, frames)
+    finally:
+        hook.remove()
+    return vals, val_si, steps, preds
+
+
+def evaluate(name, gen, profile_dir):
+    """Phase 7: configuration `name` (or the no-cue flagship model, "no
+    cues") through make_eval_step + validate; returns (the launches of the
+    timed run, the median ms a frame)."""
+    from mde_tpu_torch.ops import METRIC_NAMES, compute_errors, eval_mask
+    from mde_tpu_torch.ops.resize import resize_bilinear_align_corners
+
+    args = flagship_args(compute_dtype="float32", **CUE_CONFIGS.get(name, {}))
+    model = seeded_model(args, gen)
+    frames = eval_frames(args, gen)
+    run_validate(args, model, frames[:2])  # warm-up: cuDNN heuristics, allocator
+    reset_counts()
+    vals, val_si, steps, preds = run_validate(args, model, frames)
+    counts = read_counts()
+    median = statistics.median(ms for ms, _, _ in steps)
+    print(f"eval {name}: {EVAL_FRAMES} frames of {FRAME_HW[0]}x{FRAME_HW[1]}, batch 1, "
+          f"float32: median {median:.3f} ms a frame (all: "
+          f"{', '.join(f'{ms:.3f}' for ms, _, _ in steps)}); launches {counts}; val silog "
+          f"{val_si.get_value():.6f}; metrics " + json.dumps(vals))
+    check(counts == {**{k: 0 for k in counts}, "bins_head_fwd": EVAL_FRAMES},
+          f"eval {name}: launches {counts} for {EVAL_FRAMES} frames")
+    check(val_si.count == EVAL_FRAMES and all(np.isfinite(v) for v in vals.values())
+          and np.isfinite(val_si.get_value()), f"eval {name}: a metric is not finite")
+    if profile_dir is not None:
+        print(f"eval {name}: {eval_profile(args, model, frames, Path(profile_dir), name)}")
+
+    model.fused_head = False  # the same steps through the plain head
+    reset_counts()
+    _, _, plain_steps, plain_preds = run_validate(args, model, frames)
+    check(read_counts() == {k: 0 for k in counts}, f"eval {name}: the plain head launched")
+    model.fused_head = True
+    head_err = max((a - b).abs().max().item() for a, b in zip(preds, plain_preds))
+    for a, b in zip(preds, plain_preds):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=HEAD_TOL)
+
+    # the card's masked metrics against float64 compute_errors on the host,
+    # over the same resized, clamped prediction
+    crop = torch.from_numpy(eval_mask(FRAME_HW, "nyu", False, True))
+    metric_err = 0.0
+    for frame, pred, (_, _, got) in zip(frames, preds, steps):
+        gt = frame["depth"][0, 0]
+        p = resize_bilinear_align_corners(pred.float(), FRAME_HW)
+        p = torch.clamp(p, args.min_depth_eval, args.max_depth_eval).cpu()[0, 0]
+        valid = (gt > args.min_depth_eval) & (gt < args.max_depth_eval) & crop
+        want = compute_errors(gt[valid].double().numpy(), p[valid].double().numpy())
+        for k in METRIC_NAMES:
+            err = abs(got[k].item() - want[k]) / abs(want[k])
+            metric_err = max(metric_err, err)
+            check(err <= METRIC_TOL, f"eval {name} {k}: card {got[k].item()} vs host {want[k]}")
+    plain_ms = statistics.median(ms for ms, _, _ in plain_steps)
+    print(f"eval {name}: fused vs plain head, largest depth difference {head_err:.3e} m "
+          f"(tolerance atol {HEAD_TOL} m, rtol 1e-5); card metrics vs float64 host "
+          f"compute_errors, largest relative difference {metric_err:.3e} (tolerance "
+          f"{METRIC_TOL}); plain-head median {plain_ms:.3f} ms a frame")
+    del model
+    return counts, median
+
+
+def eval_profile(args, model, frames, out_dir, name):
+    """Device time a frame over 4 profiled eval frames, the device's busy
+    share of the wall, and the table by op (written to out_dir)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_validate(args, model, frames[:4])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, n_events = device_busy_us(prof)
+    total = sum(e.time_range.elapsed_us() for e in device_events(prof))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"chip_smoke_profile_eval_{name.replace(' ', '_')}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=30,
+                                  max_name_column_width=90))
+    return (f"profile over 4 frames: device time {total / 4e3:.3f} ms a frame, wall "
+            f"{wall_us / 4e3:.3f} ms a frame (profiled), device busy "
+            f"{100 * busy_us / wall_us:.1f}%, {n_events / 4:.0f} device events a frame")
+
+
+def no_adabins(gen):
+    """Phase 7, configuration C: one training step at batch 16 and one eval
+    frame, finite, with no kernel launched; returns the launches."""
+    from mde_tpu_torch.train import create_train_state, make_train_step
+
+    args = flagship_args(**CUE_CONFIGS["C"])
+    model = seeded_model(args, gen)
+    state = create_train_state(model, args, steps_per_epoch=2693)
+    batch = train_batch(args, gen, TRAIN_BATCH, TRAIN_HW)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, m = make_train_step(args, *cue_embedders(args))(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    eval_args = flagship_args(compute_dtype="float32", **CUE_CONFIGS["C"])
+    vals, val_si, _, preds = run_validate(eval_args, model, eval_frames(eval_args, gen)[:1])
+    counts = read_counts()
+    print(f"noAdaBins (C): one step at batch {TRAIN_BATCH} of {TRAIN_HW[0]}x{TRAIN_HW[1]} in "
+          f"{step_s:.2f} s (first step, cuDNN heuristics included): loss {m['loss'].item():.6f} "
+          f"silog {m['silog'].item():.6f} chamfer {m['chamfer'].item():.6f}; one eval frame: "
+          f"depth {tuple(preds[0].shape)} in {preds[0].min().item():.4f}-"
+          f"{preds[0].max().item():.4f} m, val silog {val_si.get_value():.6f}, metrics "
+          + json.dumps(vals) + f"; launches {counts}")
+    check(all(np.isfinite(v.item()) for v in m.values()), "noAdaBins step not finite")
+    check(m["chamfer"].item() == 0.0, "noAdaBins step computed a chamfer")
+    check(torch.isfinite(preds[0]).all().item() and all(np.isfinite(v) for v in vals.values()),
+          "noAdaBins eval not finite")
+    check(all(v == 0 for v in counts.values()), f"noAdaBins launched kernels: {counts}")
+    del state, model
+    return counts
 
 
 def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="also profile requests under four cuDNN settings and the "
-                             "training step, and write the tables to DIR")
+                             "training steps, and write the tables to DIR; print the cue "
+                             "ops' share of the A step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
     from mde_tpu_torch.kernels import bins_head, build, chamfer
-    from mde_tpu_torch.models import UnetAdaptiveBins
+    from mde_tpu_torch.models import build_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -720,21 +1050,59 @@ def main(argv):
     cublas_yardstick(gen)
     torch.cuda.empty_cache()
 
-    # each path is driven with the counts at 0 and read right after it
-    launches = {"bins_head_fwd": serve(bins_head, gen, args.profile)}
+    # each path is driven with the counts at 0 and read right after it; its
+    # launches add to the kernels line
+    launches = dict.fromkeys(STEP_LAUNCHES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    add(serve(bins_head, gen, args.profile))
     torch.cuda.empty_cache()
 
-    shell = UnetAdaptiveBins(n_bins=N_BINS, min_val=1e-3, max_val=10.0,
-                             encoder_name="efficientnet-b1")
-    state_dict = seeded_state_dict(shell, gen)
-    trained = train(state_dict, gen, args.profile)
-    launches.update({k: trained[k] for k in ("bins_head_tc_fwd", "bins_head_tc_bwd",
-                                             "chamfer")})
+    flagship = flagship_args()
+    model = build_model(flagship)
+    state_dict = seeded_state_dict(model, gen)
+    model.load_state_dict(state_dict, strict=True)
+    counts, train_ms, train_peak = train(flagship, model.cuda(), gen, args.profile, "train")
+    add(counts)
+    del model
     torch.cuda.empty_cache()
-    launches["bins_head_bwd"] = step_against_plain(state_dict, gen,
-                                                   torch.float32)["bins_head_bwd"]
+    # the float32 head backward is on no main path: its launches come from
+    # the float32 step checks
+    launches["bins_head_bwd"] += step_against_plain(state_dict, gen,
+                                                    torch.float32)["bins_head_bwd"]
     torch.cuda.empty_cache()
     step_against_plain(state_dict, gen, torch.bfloat16)
+    torch.cuda.empty_cache()
+
+    check_embedders(gen)
+    eval_ms = {}
+    for name in ("no cues", "A", "B"):
+        counts, eval_ms[name] = evaluate(name, gen, args.profile)
+        add(counts)
+        torch.cuda.empty_cache()
+    print("eval, median ms a frame: " + ", ".join(f"{k} {v:.3f}" for k, v in eval_ms.items()))
+    cue_a = flagship_args(**CUE_CONFIGS["A"])
+    counts, cue_ms, cue_peak = train(cue_a, seeded_model(cue_a, gen), gen, args.profile,
+                                     "train A")
+    add(counts)
+    print(f"train A against the no-cue step of this run: median {cue_ms:.3f} against "
+          f"{train_ms:.3f} ms ({100 * (cue_ms / train_ms - 1):+.1f}%), "
+          f"{1e3 * TRAIN_BATCH / cue_ms:.2f} against {1e3 * TRAIN_BATCH / train_ms:.2f} "
+          f"images/s, peak {cue_peak} against {train_peak} bytes")
+    torch.cuda.empty_cache()
+    cue_b = seeded_state_dict(build_model(flagship_args(**CUE_CONFIGS["B"])), gen)
+    launches["bins_head_bwd"] += step_against_plain(cue_b, gen, torch.float32,
+                                                    "B")["bins_head_bwd"]
+    torch.cuda.empty_cache()
+    step_against_plain(cue_b, gen, torch.bfloat16, "B")
+    torch.cuda.empty_cache()
+    add(no_adabins(gen))
+    print(f"launches over the main paths (the float32 head backward from the step "
+          f"checks): {launches}")
+    check(all(launches.values()), f"a kernel was launched no time: {launches}")
 
     head = "mde_tpu/kernels/bins_head.py"
     rows = [("bins_head_fwd", "mde_tpu_torch/csrc/bins_head.cu", f"{head}:76", serving_fwd),

@@ -90,10 +90,16 @@ def _encoder(wr, prefix, params, stats, arch):
     wr.bn(prefix + "bn2", params["bn2"], stats["bn2"])
 
 
+_CUE_MLPS = ("semantics_areas_fc", "semantics_absolute_sizes_fc", "instance_areas_fc",
+             "instance_absolute_sizes_fc")
+
+
 def state_dict_from_flax(params: dict, batch_stats: dict,
                          encoder_name: str = "efficientnet-b1") -> OrderedDict:
     """JAX UnetAdaptiveBins (params, batch_stats) trees of numpy arrays ->
-    port state_dict under the reference's torch names (AdaBins head, no cues)."""
+    port state_dict under the reference's torch names: the CueMLPs the tree
+    holds, and the AdaBins head unless the tree has none (noAdaBins). The
+    widths (a stem or an mViT widened by cues) come with the arrays."""
     arch = "efficientnet-b5" if "efficientnet-b5" in encoder_name else "efficientnet-b1"
     wr = _Writer()
     _encoder(wr, "encoder.original_model.", params["encoder"], batch_stats["encoder"],
@@ -108,6 +114,12 @@ def state_dict_from_flax(params: dict, batch_stats: dict,
         wr.conv(f"decoder.up{i}._net.3", up["conv_b"])
         wr.bn(f"decoder.up{i}._net.4", up["bn_b"], ust["bn_b"])
     wr.conv("decoder.conv3", dp["conv3"])
+    for name in _CUE_MLPS:
+        if name in params:
+            wr.conv(name + ".0", params[name]["fc0"])
+            wr.conv(name + ".2", params[name]["fc1"])
+    if "adaptive_bins_layer" not in params:
+        return wr.sd
 
     ab = params["adaptive_bins_layer"]
     pt = ab["patch_transformer"]

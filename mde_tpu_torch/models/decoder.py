@@ -40,10 +40,11 @@ class DecoderBN(nn.Module):
     """4-stage UNet decoder (reference unet_adaptive_bins.py:56-100).
 
     skip_chs: channels of features[4], [5], [6], [8] (stage outputs 0, 1, 2, 4).
+    mode "noAdaBins" gives conv3 one output channel, the depth itself.
     """
 
     def __init__(self, num_features: int = 1280, num_classes: int = 128,
-                 skip_chs=(16, 24, 40, 112)):
+                 skip_chs=(16, 24, 40, 112), mode: str = "AdaBins"):
         super().__init__()
         f = num_features
         c0, c1, c2, c3 = skip_chs
@@ -52,7 +53,8 @@ class DecoderBN(nn.Module):
         self.up2 = UpSampleBN(f // 2 + c2, f // 4)
         self.up3 = UpSampleBN(f // 4 + c1, f // 8)
         self.up4 = UpSampleBN(f // 8 + c0, f // 16)
-        self.conv3 = nn.Conv2d(f // 16, num_classes, 3, 1, 1)
+        out_chs = 1 if mode == "noAdaBins" else num_classes
+        self.conv3 = nn.Conv2d(f // 16, out_chs, 3, 1, 1)
 
     def forward(self, features):
         x_block0, x_block1, x_block2, x_block3, x_block4 = (

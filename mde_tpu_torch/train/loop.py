@@ -1,10 +1,17 @@
-"""The training step, port of `mde_tpu/train/loop.py::make_train_step`
-(:50-139; reference train.py:387-455), NCHW.
+"""The training and eval steps and validation, port of `mde_tpu/train/loop.py`
+(`make_train_step` :50-139, reference train.py:387-455; `make_eval_step`
+:167-205 and `validate` :208-242, reference train.py:505-568), NCHW.
 
-One step: forward in train mode (batch-statistics BatchNorm, mViT dropout),
-SILog after the align-corners resize to the GT size over the pixels with
-depth > min_depth, plus w_chamfer x the bins-chamfer loss, backward, the
-global-norm clip and the AdamW update with the scheduled lr and beta1.
+Cues: a batch may carry raw `semantics`, `instance_labels` and
+`instance_areas` maps, (N, 1, H, W) each; the embedders given to the step
+(cues/embedders.py) turn them into cue channels on the batch's device before
+the forward, as the JAX step does inside its jit.
+
+One training step: forward in train mode (batch-statistics BatchNorm, mViT
+dropout), SILog after the align-corners resize to the GT size over the
+pixels with depth > min_depth, plus w_chamfer x the bins-chamfer loss (none
+for the noAdaBins head, which has no bins), backward, the global-norm clip
+and the AdamW update with the scheduled lr and beta1.
 
 * `--compute_dtype bfloat16` (the JAX training run's default) runs the
   forward and the loss under `torch.autocast(bfloat16)` over float32
@@ -19,9 +26,14 @@ global-norm clip and the AdamW update with the scheduled lr and beta1.
 * The dropout masks of step s (micro-batch i) come from a generator seeded
   with (args.seed, s, i), as the JAX step folds its rng per step.
 
+The eval step runs on the device under `torch.inference_mode()`: the
+forward with no TTA, the float32 prediction resized (align corners) to the
+GT's size, per-image SILog, the clamp to the eval range with inf and NaN
+scrubbed, and the masked metrics per image. `validate` feeds it any iterable
+of batch dicts and averages per sample, as the reference does at batch 1.
+
 Not ported: `make_multi_step` and `--steps_per_dispatch` (a TPU dispatch
-workaround); `make_eval_step`, `validate` and `train/driver.py` wait for the
-dataset (ROADMAP queue 1).
+workaround); `train/driver.py` and the dataset (ROADMAP queue 1).
 """
 
 import numpy as np
@@ -29,13 +41,28 @@ import torch
 
 from ..kernels.chamfer import chamfer_1d
 from ..ops.losses import bins_chamfer_loss, silog_loss
+from ..ops.metrics import METRIC_NAMES, compute_errors_masked, eval_mask
+from ..ops.resize import resize_bilinear_align_corners
+from ..utils.running_average import RunningAverage, RunningAverageDict
 from .state import TrainState
 
+_EVAL_KEYS = ("image", "depth", "semantics", "instance_labels", "instance_areas")
 
-def make_loss_fn(args):
+
+def _embed_cues(batch, sem_embedder, inst_embedder):
+    semantics = instance_labels = instance_areas = None
+    if "semantics" in batch and sem_embedder is not None:
+        _, semantics = sem_embedder(batch["semantics"])
+    if "instance_labels" in batch and inst_embedder is not None:
+        _, instance_labels, instance_areas = inst_embedder(
+            batch["instance_labels"], batch["instance_areas"])
+    return semantics, instance_labels, instance_areas
+
+
+def make_loss_fn(args, sem_embedder=None, inst_embedder=None):
     """loss_fn(model, batch, generator) -> (loss, silog, chamfer), for a batch
-    {"image": (N, 3, H, W), "depth": (N, 1, H, W)}. The caller takes the
-    gradients."""
+    {"image": (N, 3, H, W), "depth": (N, 1, H, W)} and the raw cue maps the
+    embedders take. The caller takes the gradients."""
     w_chamfer = float(args.w_chamfer)
     use_chamfer = bool(args.chamfer) and w_chamfer != 0.0
     min_depth = float(args.min_depth)
@@ -44,10 +71,11 @@ def make_loss_fn(args):
 
     def loss_fn(model, batch, generator=None):
         image, depth = batch["image"], batch["depth"]
+        cues = _embed_cues(batch, sem_embedder, inst_embedder)
         with torch.autocast(image.device.type, dtype=torch.bfloat16, enabled=bf16):
-            bin_edges, pred = model(image, generator)
+            bin_edges, pred = model(image, *cues, generator=generator)
             l_dense = silog_loss(pred, depth, depth > min_depth, interpolate=True)
-            if use_chamfer:
+            if use_chamfer and bin_edges is not None:
                 l_chamfer = chamfer_fn(bin_edges, depth)
             else:
                 l_chamfer = torch.zeros((), device=image.device)
@@ -61,11 +89,11 @@ def _dropout_seed(seed: int, step: int, micro: int) -> int:
     return int(np.random.SeedSequence([seed, step, micro]).generate_state(1)[0])
 
 
-def make_train_step(args):
+def make_train_step(args, sem_embedder=None, inst_embedder=None):
     """train_step(state, batch) -> (state, metrics): one update of
     `state.model` in place. Metrics are 0-d tensors on the batch's device
     (`loss`, `silog`, `chamfer`); reading them waits for the step."""
-    loss_fn = make_loss_fn(args)
+    loss_fn = make_loss_fn(args, sem_embedder, inst_embedder)
     accum = max(1, int(args.accum_steps))
     seed = int(args.seed)
 
@@ -91,3 +119,68 @@ def make_train_step(args):
         return state, {"loss": loss, "silog": l_dense, "chamfer": l_chamfer}
 
     return train_step
+
+
+def make_eval_step(args, sem_embedder=None, inst_embedder=None):
+    """eval_step(model, batch, crop_mask) -> (silog (N,), metrics): the model
+    in eval mode on a batch on its device, `crop_mask` (H, W) boolean at the
+    GT's size. `metrics` maps each of METRIC_NAMES to an (N,) tensor."""
+    min_d, max_d = float(args.min_depth_eval), float(args.max_depth_eval)
+    min_depth = float(args.min_depth)
+
+    @torch.inference_mode()
+    def eval_step(model, batch, crop_mask):
+        model.eval()
+        cues = _embed_cues(batch, sem_embedder, inst_embedder)
+        _, pred = model(batch["image"], *cues)
+        # metric math stays float32 whatever the model computes in
+        depth = batch["depth"]
+        pred = resize_bilinear_align_corners(pred.float(), depth.shape[-2:])
+        # per-image SILog, so the host can drop invalid-depth samples alone
+        l_dense = torch.stack([
+            silog_loss(p[None], d[None], (d > min_depth)[None], interpolate=False)
+            for p, d in zip(pred, depth)])
+        pred = torch.clamp(pred, min_d, max_d)
+        pred = torch.where(torch.isinf(pred), max_d, pred)
+        pred = torch.where(torch.isnan(pred), min_d, pred)
+
+        gt, pr = depth[:, 0], pred[:, 0]
+        valid = (gt > min_d) & (gt < max_d) & crop_mask[None]
+        return l_dense, compute_errors_masked(gt, pr, valid, dim=(-2, -1))
+
+    return eval_step
+
+
+def validate(args, eval_step, model, test_loader, max_batches=None):
+    """Online validation over any iterable of batch dicts (host or device
+    tensors, moved to the model's device); returns (metric dict, the
+    RunningAverage of the per-sample val SILog). Samples whose
+    `has_valid_depth` is false are skipped one by one (reference
+    train.py:516-518); the crop follows each batch's GT size."""
+    device = next(model.parameters()).device
+    val_si = RunningAverage()
+    metrics = RunningAverageDict()
+    crops = {}
+    for i, batch in enumerate(test_loader):
+        if max_batches is not None and i >= max_batches:
+            break
+        bs = batch["depth"].shape[0]
+        valid = (torch.as_tensor(batch["has_valid_depth"]).reshape(-1).bool().tolist()
+                 if "has_valid_depth" in batch else [True] * bs)
+        if not any(valid):
+            continue
+        gt_hw = tuple(batch["depth"].shape[-2:])
+        if gt_hw not in crops:
+            crops[gt_hw] = torch.from_numpy(eval_mask(
+                gt_hw, args.dataset, args.garg_crop, args.eigen_crop)).to(device)
+        arrays = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+                  if k in _EVAL_KEYS}
+        si, m = eval_step(model, arrays, crops[gt_hw])
+        values = torch.stack([si] + [m[k] for k in METRIC_NAMES]).cpu().numpy()
+        for j in range(bs):
+            if not valid[j]:
+                continue
+            val_si.append(float(values[0, j]))
+            metrics.update({k: float(values[1 + n, j]) for n, k in enumerate(METRIC_NAMES)})
+    vals = metrics.get_value() if metrics._dict else {k: float("nan") for k in METRIC_NAMES}
+    return vals, val_si

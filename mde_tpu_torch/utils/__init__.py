@@ -1,3 +1,4 @@
 from .misc import colorize
+from .running_average import RunningAverage, RunningAverageDict
 
-__all__ = ["colorize"]
+__all__ = ["colorize", "RunningAverage", "RunningAverageDict"]

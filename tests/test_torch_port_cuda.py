@@ -474,3 +474,69 @@ def test_bins_head_kernel_refuses_non_contiguous(cuda):
     x, weight, bias, centers = _head_inputs(cuda, torch.float32, 1, 16, 8, 128)
     with pytest.raises(ValueError, match="contiguous"):
         bins_head.fused_bins_head(x.transpose(2, 3), weight, bias, centers)
+
+
+# --- the cue path ------------------------------------------------------------
+
+def _cue_args(**kw):
+    import types
+    base = dict(n_bins=256, min_depth=1e-3, max_depth=10.0, norm="linear",
+                encoder_name="efficientnet-b1", use_semantics="glove-25d",
+                use_instance_segmentation="ade20k_swin_human_sizes", insertion_point="input",
+                image="rgb", use_fused_head=True, min_depth_eval=1e-3, max_depth_eval=10.0)
+    base.update(kw)
+    return types.SimpleNamespace(**base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semantics,instances", [
+    ("glove-25d", "ade20k_swin_human_sizes"), ("glove-25d-inst-areas", "coco"),
+    ("glove-25d-ade20k-places-human-sizes", "ade20k_swin_bbox"), ("raw", "ade20k_swin")])
+def test_cue_embedders_on_card_match_cpu(cuda, semantics, instances):
+    """Labels with -1 and values past every table: the card's gathers and
+    area maps equal the CPU's, NaN in the same places, and no device-side
+    assert (the synchronize would raise it)."""
+    from mde_tpu_torch.cues import InstanceEmbedder, SemanticsEmbedder
+    args = _cue_args(use_semantics=semantics, use_instance_segmentation=instances)
+    gen = torch.Generator().manual_seed(8)
+    labels = torch.randint(-200, 200, (2, 1, 33, 47), generator=gen, dtype=torch.int32)
+    labels.view(-1)[:4] = torch.tensor([-1, 150, -151, 1000], dtype=torch.int32)
+    areas = torch.randint(0, 5000, labels.shape, generator=gen).float()
+    outs = []
+    for device in (cuda, torch.device("cpu")):
+        sem, inst = SemanticsEmbedder(args, device), InstanceEmbedder(args, device)
+        outs.append([t.cpu() for t in (*sem(labels.to(device)),
+                                       *inst(labels.to(device), areas.to(device)))])
+        torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_eval_step_launches_the_f32_head_once(cuda):
+    """One frame of configuration A through make_eval_step: one float32 head
+    forward launch, no other kernel, finite metrics."""
+    from mde_tpu_torch.cues import InstanceEmbedder, SemanticsEmbedder
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import make_eval_step
+    args = _cue_args()
+    torch.manual_seed(0)
+    model = build_model(args).to(cuda)
+    step = make_eval_step(args, SemanticsEmbedder(args, cuda), InstanceEmbedder(args, cuda))
+    gen = torch.Generator().manual_seed(9)
+    batch = {"image": torch.randn((1, 3, 320, 416), generator=gen),
+             "depth": 0.05 + 9.9 * torch.rand((1, 1, 480, 640), generator=gen),
+             "semantics": torch.randint(0, 150, (1, 1, 320, 416), generator=gen),
+             "instance_labels": torch.randint(0, 101, (1, 1, 320, 416), generator=gen),
+             "instance_areas": torch.randint(0, 9000, (1, 1, 320, 416), generator=gen)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    crop = torch.ones((480, 640), dtype=torch.bool, device=cuda)
+    counts = (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
+              bins_head.TC_BWD_LAUNCHES, chamfer.LAUNCHES)
+    si, metrics = step(model, batch, crop)
+    torch.cuda.synchronize()
+    after = (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
+             bins_head.TC_BWD_LAUNCHES, chamfer.LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, counts)) == (1, 0, 0, 0, 0)
+    assert torch.isfinite(si).all() and all(torch.isfinite(v).all() for v in metrics.values())

@@ -34,8 +34,15 @@ def flax_variables(n_bins=256, seed=0):
     """(params, batch_stats) of a JAX B1 UnetAdaptiveBins as numpy trees."""
     model = JaxUnetAdaptiveBins(n_bins=n_bins, min_val=1e-3, max_val=10.0,
                                 encoder_name="efficientnet-b1")
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            jax.ShapeDtypeStruct((1, 320, 416, 3), jnp.float32))
+    return seeded_variables(model, [(1, 320, 416, 3)], seed)
+
+
+def seeded_variables(model, input_shapes, seed):
+    """(params, batch_stats) of a JAX model as numpy trees, for float32
+    inputs of `input_shapes` (None for an input not given)."""
+    inputs = [None if s is None else jax.ShapeDtypeStruct(s, jnp.float32)
+              for s in input_shapes]
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *inputs)
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):

@@ -26,6 +26,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_MODULES = ["mde_tpu_torch", "mde_tpu_torch.ops", "mde_tpu_torch.ops.losses",
+                 "mde_tpu_torch.ops.metrics", "mde_tpu_torch.cues",
                  "mde_tpu_torch.kernels", "mde_tpu_torch.kernels.build",
                  "mde_tpu_torch.kernels.chamfer", "mde_tpu_torch.models",
                  "mde_tpu_torch.checkpoint", "mde_tpu_torch.data", "mde_tpu_torch.infer",

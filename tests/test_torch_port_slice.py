@@ -130,10 +130,66 @@ def test_build_model_follows_fused_head_flag(extra, fused):
     assert model.conv_out[0].weight.shape == (256, 128, 1, 1)
 
 
-@pytest.mark.parametrize("extra", [("--use_semantics", "raw"),
-                                   ("--use_instance_segmentation", "coco"),
-                                   ("--encoder_name", "efficientnet-b1-noAdaBins"),
-                                   ("--image", "none")])
-def test_build_model_refuses_what_is_not_ported(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+CUE_BUILDS = {
+    "semantics_raw": (("--use_semantics", "raw"), 3, 129, {}),
+    "coco": (("--use_instance_segmentation", "coco"), 3, 163, {"instance_areas_fc": 1}),
+    "noAdaBins": (("--encoder_name", "efficientnet-b1-noAdaBins"), 3, None, {}),
+    "image_none": (("--image", "none", "--use_semantics", "glove-25d",
+                    "--insertion_point", "input"), 25, 128, {}),
+    "human_sizes_input": (("--use_semantics", "glove-25d-ade20k-places-human-sizes",
+                           "--use_instance_segmentation", "ade20k_swin_bbox_human_sizes",
+                           "--insertion_point", "input"), 83, 128,
+                          {"semantics_absolute_sizes_fc": 3, "instance_areas_fc": 1,
+                           "instance_absolute_sizes_fc": 3}),
+}
+
+
+def _jax_state_dict_shapes(args):
+    """Names and shapes of the JAX model's tree for these args, under the
+    port's torch names (init traced by eval_shape, at 320x416: below 129
+    mViT tokens the JAX head has fewer queries and a narrower conv_out)."""
+    from mde_tpu.models import build_model as jax_build_model
+    from test_torch_port_cues import jax_embed, raw_cues
+    raw = raw_cues(np.random.default_rng(0), 1, (320, 416), args.use_instance_segmentation)
+    raw["image"] = np.zeros((1, 320, 416, 3), np.float32)
+    cues = jax.eval_shape(jax_embed(args), raw)
+    shapes = jax.eval_shape(
+        jax_build_model(args).init, jax.random.PRNGKey(0), raw["image"],
+        *[c if (args.use_semantics, args.use_instance_segmentation)[min(i, 1)] else None
+          for i, c in enumerate(cues)])
+    zeros = jax.tree_util.tree_map(lambda leaf: np.zeros(leaf.shape, np.float32), shapes)
+    sd = state_dict_from_flax(zeros["params"], zeros["batch_stats"], args.encoder_name)
+    return {k: tuple(v.shape) for k, v in sd.items()}
+
+
+@pytest.mark.parametrize("case", list(CUE_BUILDS))
+def test_build_model_builds_cue_configs(case):
+    """The stem, the mViT and the CueMLPs take the widths and names of the
+    JAX model's tree, and every other tensor matches it too."""
+    extra, stem, mvit, mlps = CUE_BUILDS[case]
+    args = _args(*extra)
+    model = build_model(args)
+    got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    assert got == _jax_state_dict_shapes(args)
+    assert got["encoder.original_model.conv_stem.weight"] == (32, stem, 3, 3)
+    if mvit is None:
+        assert model.decoder.conv3.weight.shape[0] == 1
+        assert not any(k.startswith(("adaptive_bins_layer.", "conv_out.")) for k in got)
+    else:
+        assert got["adaptive_bins_layer.conv3x3.weight"] == (128, mvit, 3, 3)
+        assert got["adaptive_bins_layer.patch_transformer.embedding_convPxP.weight"] == (
+            128, mvit, 16, 16)
+    assert {k.split(".")[0] for k in got if k.endswith("_fc.0.weight")} == set(mlps)
+    for name, c in mlps.items():
+        assert got[name + ".0.weight"] == (10, c, 1, 1) and got[name + ".2.weight"] == (
+            10, 10, 1, 1)
+
+
+@pytest.mark.parametrize("extra", [
+    ("--image", "none"),
+    ("--use_semantics", "glove-25d-ade20k-places-human-sizes")])
+def test_build_model_refuses_what_jax_refuses(extra):
+    """No input cue to replace the image; semantics human-sizes before the
+    mViT (a reference configuration that cannot run)."""
+    with pytest.raises(ValueError):
         build_model(_args(*extra))

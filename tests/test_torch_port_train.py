@@ -209,8 +209,8 @@ def test_adamw_clip_updates_match_optax(factor):
 
 def _grad_keeper():
     """optax transformation that updates by zero and keeps the gradients."""
-    def init(params):
-        return {"grads": jax.tree_util.tree_map(jnp.zeros_like, params)}
+    def init(params):  # numpy: an eager jnp op would compile once per shape
+        return {"grads": jax.tree_util.tree_map(np.zeros_like, params)}
 
     def update(updates, state, params=None):
         return jax.tree_util.tree_map(jnp.zeros_like, updates), {"grads": updates}
