@@ -10,7 +10,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
   2. build the kernels of mde_tpu_torch/csrc with nvcc, one process per
      source, all at once (bins_head.cu: the float32 head forward and
      backward on the CUDA cores; bins_head_tc.cu: the bfloat16 head forward
-     and backward on the tensor cores; chamfer.cu: chamfer reductions)
+     and backward on the tensor cores; chamfer.cu: chamfer reductions), and
+     beside them the host library mdeaug.cpp (the JPEG/PNG decoders and the
+     augmentation) with g++
   3. each kernel against its plain PyTorch version: the head forward at the
      serving shape (B=2, 240x320 pixels) and, with the head backward, at the
      training shape (B=16, 208x272 pixels), 128 channels, 256 bins, float32
@@ -56,22 +58,45 @@ Phases, each of which ends the run with a non-zero exit if it fails:
        gradients held with conv_out's and the regressor's
      - C: one training step at batch 16 and one eval frame, finite, and no
        kernel launched (no bins head, no chamfer)
-  8. one JSON line on the kernels (launches summed over the main paths:
-     serving, training, the eval and cue training runs; the float32 head
-     backward, which no main path runs, from the float32 step checks), then
-     the result line.
+  8. the train CLI: an NYU-format tree of 128 train and 16 eval frames
+     (every RGB file a copy of test_imgs/classroom__rgb_00283.jpg, each
+     depth a smooth per-frame millimetre map written as a 16-bit PNG); the
+     port's decode of that JPEG against the SHA-256 of PIL's decode; then
+     parse_cli(params/args_train_nyu_efficientnet-b1.txt, --bs 16 --epochs
+     2 --validate_every 6, the tree's paths) and main_train(max_steps=12):
+     the flagship through the native loader, the prefetcher, the driver,
+     two validations of the 16 frames at batch 1 in float32, latest and best
+     checkpoints; exactly 12 x (1, 2, 1) bf16 head forward / backward and
+     chamfer launches and one float32 head forward an eval frame, finite
+     losses, the JSONL's tags and steps at the JAX driver's cadence; then
+     --resume latest with max_steps=14: epoch 1, update 12, two steps, the
+     learning rate of OneCycle's update 13. Prints the driver's median step
+     beside phase 5's synthetic step, the loader's time for one batch of 16
+     alone, the validation ms a frame, the checkpoint save ms and bytes, the
+     peak device memory and (with --profile) the device's busy share over
+     steps 3-8 through the driver
+  9. one JSON line on the kernels (launches summed over the main paths:
+     serving, training, the eval and cue training runs, the train CLI; the
+     float32 head backward, which no main path runs, from the float32 step
+     checks), then the result line.
 
 float32 comparisons run with TF32 off for both cuDNN and cuBLAS. The script
 imports no JAX: it is the quickest proof that the port runs on the card.
 """
 
 import argparse
+import hashlib
 import json
+import os
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -183,8 +208,9 @@ def toolchain(build):
 
 
 def build_all(build, libraries):
-    """Phase 2: one nvcc per source, started together; `libraries` maps each
-    source to the function that builds and loads it."""
+    """Phase 2: one compiler per source (nvcc for .cu, g++ for the host
+    .cpp), started together; `libraries` maps each source to the function
+    that builds and loads it."""
     def timed(load):
         t0 = time.perf_counter()
         load()
@@ -194,8 +220,12 @@ def build_all(build, libraries):
         seconds = list(pool.map(timed, libraries.values()))
     for source, s in zip(libraries, seconds):
         print(f"build: {source} in {s:.2f} s (all sources built in parallel)")
-        log = build.library_path(source).with_suffix(".log").read_text().strip()
+        host = source.endswith(".cpp")
+        path = build.host_library_path(source) if host else build.library_path(source)
+        log = path.with_suffix(".log").read_text().strip()
         print(log)
+        if host:
+            continue
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
         check(spills and all(n == "0" for n in spills), f"{source}: ptxas reports spills")
 
@@ -1016,6 +1046,349 @@ def no_adabins(gen):
     return counts
 
 
+# --- phase 8: the train CLI --------------------------------------------------
+
+REPO = Path(__file__).resolve().parent
+CLASSROOM = REPO / "test_imgs" / "classroom__rgb_00283.jpg"
+# SHA-256 of PIL's decode of CLASSROOM, (480, 640, 3) uint8 bytes; pinned by
+# tests/test_torch_port_data.py on a machine with PIL (this one has none)
+CLASSROOM_SHA256 = "fc05530ffb6b5028a13461478c4a7a6af573e4c652eb3304c516b1bd02bef062"
+PARAMS_FILE = "params/args_train_nyu_efficientnet-b1.txt"
+CLI_TRAIN_FRAMES, CLI_EVAL_FRAMES = 128, 16
+CLI_STEPS, CLI_RESUME_STEPS, CLI_VALIDATE_EVERY, CLI_EPOCHS = 12, 14, 6, 2
+CLI_STEPS_PER_EPOCH = CLI_TRAIN_FRAMES // TRAIN_BATCH
+CLI_PROFILE_STEPS = (3, 8)  # update indices profiled under --profile
+
+
+def write_png16(path, depth):
+    """(H, W) uint16 as a 16-bit grayscale PNG: filter 0 rows, one zlib IDAT."""
+    h, w = depth.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          depth.astype(">u2").view(np.uint8).reshape(h, 2 * w)], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                     + chunk(b"IEND", b""))
+
+
+def nyu_tree(root):
+    """The NYU-format tree: CLI_TRAIN_FRAMES + CLI_EVAL_FRAMES copies of
+    CLASSROOM, each with a smooth millimetre depth map of its own (two
+    sinusoids, 500-9,000 mm) as a 16-bit PNG, and the two split files."""
+    scene = root / "classroom_0001"
+    scene.mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:FRAME_HW[0], 0:FRAME_HW[1]]
+    lines = []
+    for i in range(CLI_TRAIN_FRAMES + CLI_EVAL_FRAMES):
+        fy, fx, py, px = rng.uniform(0.5, 2.0, 2).tolist() + rng.uniform(0, 1, 2).tolist()
+        wave = (0.5 + 0.25 * np.sin(2 * np.pi * (fy * yy / FRAME_HW[0] + py))
+                + 0.25 * np.cos(2 * np.pi * (fx * xx / FRAME_HW[1] + px)))
+        shutil.copyfile(CLASSROOM, scene / f"rgb_{i:05d}.jpg")
+        write_png16(scene / f"sync_depth_{i:05d}.png", np.rint(500 + 8500 * wave).astype(np.uint16))
+        lines.append(f"/classroom_0001/rgb_{i:05d}.jpg /classroom_0001/sync_depth_{i:05d}.png "
+                     "518.8579")
+    (root / "train.txt").write_text("\n".join(lines[:CLI_TRAIN_FRAMES]) + "\n")
+    (root / "eval.txt").write_text("\n".join(lines[CLI_TRAIN_FRAMES:]) + "\n")
+
+
+def driver_cadence(first_step, max_steps):
+    """(tag, step) of every scalar mde_tpu/train/driver.py's epoch loop and
+    `bookkeep` write from `first_step` to `max_steps`, figures aside."""
+    from mde_tpu_torch.ops import METRIC_NAMES
+    out, step = [("Epoch", first_step)], first_step
+    while True:
+        if step % 5 == 0:
+            out += [("Train/Loss", step), ("Train/SILog", step), ("Train/ChamferLoss", step)]
+        step += 1
+        if step % CLI_VALIDATE_EVERY == 0 or step >= max_steps:
+            out += [("Test/SILog", step)] + [(f"Metrics/{k}", step) for k in METRIC_NAMES]
+        if step >= max_steps:
+            return out
+        if step % CLI_STEPS_PER_EPOCH == 0:
+            out.append(("Epoch", step))
+
+
+class DriverProbe:
+    """Wraps the driver's train step, `validate` and `save_checkpoint` for
+    the run: each step synchronized and stamped (its update index, the host
+    clock at its end), each validation and save timed, the saved bytes
+    read; with a profiler, the steps CLI_PROFILE_STEPS profiled."""
+
+    def __init__(self, driver, profile):
+        self.driver, self.profile = driver, profile
+        self.stamps, self.validations, self.saves = [], [], []
+        self.prof = self.prof_wall_us = None
+        self.real = {k: getattr(driver, k) for k in ("make_train_step", "validate",
+                                                     "save_checkpoint")}
+
+    def __enter__(self):
+        def make_train_step(*a, **k):
+            step = self.real["make_train_step"](*a, **k)
+
+            def timed(state, batch):
+                index = state.step
+                if self.profile and index == CLI_PROFILE_STEPS[0]:
+                    self._start_profile()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                self.stamps.append((index, time.perf_counter()))
+                if self.profile and index == CLI_PROFILE_STEPS[1]:
+                    self.prof_wall_us = (time.perf_counter() - self.prof_t0) * 1e6
+                    self.prof.stop()  # collecting the trace falls in the next interval
+                return out
+            return timed
+
+        def validate(*a, **k):
+            t0 = time.perf_counter()
+            vals, val_si = self.real["validate"](*a, **k)
+            torch.cuda.synchronize()
+            self.validations.append(((time.perf_counter() - t0) * 1e3, val_si.count))
+            return vals, val_si
+
+        def save_checkpoint(*a, **k):
+            t0 = time.perf_counter()
+            path = self.real["save_checkpoint"](*a, **k)
+            self.saves.append(((time.perf_counter() - t0) * 1e3, os.path.getsize(path)))
+            return path
+
+        for name, fn in (("make_train_step", make_train_step), ("validate", validate),
+                         ("save_checkpoint", save_checkpoint)):
+            setattr(self.driver, name, fn)
+        return self
+
+    def _start_profile(self):
+        # the device's activity only: a CPU trace of every op of the
+        # training thread, the prefetcher and the loader's threads costs
+        # the host more than the steps do
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        torch.cuda.synchronize()
+        self.prof = torch_profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+        self.prof_t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.driver, name, fn)
+
+    def step_ms(self, first, last, skip):
+        """The wall of each step from the end of the one before (the loader's
+        wait, the step and the previous step's bookkeeping), for update
+        indices first..last, less those whose interval holds a validation."""
+        ends = dict(self.stamps)
+        return {i: (ends[i] - ends[i - 1]) * 1e3 for i in range(first, last + 1)
+                if i - 1 in ends and i not in skip}
+
+
+def loader_batch_ms(args):
+    """One batch of TRAIN_BATCH from the train loader alone (the native
+    engine: decode, crop, augment with args.num_threads threads), first and
+    second batch of an epoch."""
+    from mde_tpu_torch.data import DepthDataLoader
+    loader = DepthDataLoader(args, "train")
+    loader.set_epoch(0)
+    it = iter(loader)
+    out = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        batch = next(it)
+        out.append((time.perf_counter() - t0) * 1e3)
+    check(batch["image"].shape == (TRAIN_BATCH, *TRAIN_HW, 3), "loader batch shape")
+    it.close()
+    return out
+
+
+def loader_contention(args, state, steps=6):
+    """The driver's train step on one device-resident batch of the loader's,
+    synchronized: median ms alone, and while a thread iterates the train
+    loader (decode and augment of batches nobody reads) as the prefetcher
+    does during a run. Their difference is what the loader's host work
+    costs the step's launch thread."""
+    import threading
+    from mde_tpu_torch.data import DepthDataLoader, DevicePrefetcher
+    from mde_tpu_torch.data.prefetch import ARRAY_KEYS
+    from mde_tpu_torch.train import make_train_step
+
+    loader = DepthDataLoader(args, "train")
+    batch = next(iter(DevicePrefetcher(loader, args.device)))
+    batch = {k: v for k, v in batch.items() if k in ARRAY_KEYS}
+    step = make_train_step(args)
+
+    def median_ms():
+        nonlocal state
+        state, _ = step(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    alone = median_ms()
+    stop = threading.Event()
+
+    def drain():
+        epoch = 0
+        while not stop.is_set():
+            loader.set_epoch(epoch)
+            for _ in loader:
+                if stop.is_set():
+                    return
+            epoch += 1
+
+    thread = threading.Thread(target=drain, daemon=True)
+    thread.start()
+    try:
+        busy = median_ms()
+    finally:
+        stop.set()
+        thread.join()
+    return alone, busy
+
+
+def train_cli(profile_dir, synthetic_ms):
+    """Phase 8; returns the launches of the two driver runs."""
+    from mde_tpu_torch.config import TrainArgParser, parse_cli
+    from mde_tpu_torch.data import read_rgb
+    from mde_tpu_torch.train import driver, onecycle_lr_schedule
+
+    decoded = read_rgb(CLASSROOM)
+    digest = hashlib.sha256(decoded.tobytes()).hexdigest()
+    print(f"train CLI: decode of {CLASSROOM.name}: {decoded.shape} {decoded.dtype}, "
+          f"sha256 {digest}")
+    check(digest == CLASSROOM_SHA256, "the port's JPEG decode differs from PIL's")
+
+    build_dir = REPO / ".build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        nyu_tree(root / "nyu")
+        print(f"train CLI: tree of {CLI_TRAIN_FRAMES} + {CLI_EVAL_FRAMES} frames in "
+              f"{time.perf_counter() - t0:.2f} s")
+        data = str(root / "nyu")
+        argv = [PARAMS_FILE, "--bs", str(TRAIN_BATCH), "--epochs", str(CLI_EPOCHS),
+                "--validate_every", str(CLI_VALIDATE_EVERY), "--root", str(root / "runs"),
+                "--data_path", data, "--gt_path", data,
+                "--filenames_file", str(root / "nyu" / "train.txt"),
+                "--data_path_eval", data, "--gt_path_eval", data,
+                "--filenames_file_eval", str(root / "nyu" / "eval.txt")]
+        args = parse_cli(TrainArgParser(), argv)
+        print(f"train CLI: {PARAMS_FILE} + overrides: bs {args.bs}, epochs {args.epochs}, "
+              f"validate_every {args.validate_every}, n_bins {args.n_bins}, "
+              f"{args.input_height}x{args.input_width}, {args.compute_dtype}, workers "
+              f"{args.workers}, device {args.device}, distributed {args.distributed}")
+        batch_ms = loader_batch_ms(args)
+        print(f"train CLI: the loader alone, one batch of {TRAIN_BATCH} (native decode and "
+              f"augment, {args.num_threads} threads, os.cpu_count() {os.cpu_count()}): first "
+              f"{batch_ms[0]:.3f} ms, second {batch_ms[1]:.3f} ms")
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with DriverProbe(driver, profile_dir is not None) as probe:
+            t0 = time.perf_counter()
+            state = driver.main_train(args, max_steps=CLI_STEPS, interactive=False)
+            run_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expected = {"bins_head_fwd": 2 * CLI_EVAL_FRAMES, "bins_head_bwd": 0,
+                    "bins_head_tc_fwd": CLI_STEPS, "bins_head_tc_bwd": 2 * CLI_STEPS,
+                    "chamfer": CLI_STEPS}
+        print(f"train CLI: main_train(max_steps={CLI_STEPS}) in {run_s:.2f} s, {state.step} "
+              f"steps; launches {counts}, expected {expected}")
+        check(state.step == CLI_STEPS, "the driver did not take its steps")
+        check(counts == expected, f"train CLI launches {counts}, expected {expected}")
+
+        exp_dir = Path(args.exp_dir)
+        with open(exp_dir / "events.jsonl") as f:
+            events = [json.loads(line) for line in f]
+        check([(e["tag"], e["step"]) for e in events] == driver_cadence(0, CLI_STEPS),
+              "train CLI: the JSONL's tags and steps are not the JAX driver's")
+        check(all(np.isfinite(e["value"]) for e in events), "train CLI: a logged value is "
+              "not finite")
+        losses = [(e["step"], round(e["value"], 6)) for e in events if e["tag"] == "Train/Loss"]
+        latest = sorted(exp_dir.glob("*_latest.pt"))
+        best = sorted(exp_dir.glob("*_best.pt"))
+        check(len(latest) == 1 and len(best) == 1, "train CLI: latest or best missing")
+        validate_ms = [ms / n for ms, n in probe.validations]
+        save_ms = [ms for ms, _ in probe.saves]
+        skip = {v for v in range(CLI_VALIDATE_EVERY, CLI_STEPS, CLI_VALIDATE_EVERY)}
+        if profile_dir is not None:  # the profiled steps and the trace's collection
+            skip |= set(range(CLI_PROFILE_STEPS[0], CLI_PROFILE_STEPS[1] + 2))
+        steps = probe.step_ms(3, CLI_STEPS - 1, skip)
+        median = statistics.median(steps.values())
+        print(f"train CLI: Train/Loss {losses}; Test/SILog "
+              f"{[round(e['value'], 6) for e in events if e['tag'] == 'Test/SILog']}")
+        print(f"train CLI: step wall through the driver (from the end of the step before: "
+              f"loader wait, step, bookkeeping), update indices 3-{CLI_STEPS - 1} less "
+              f"those after a validation"
+              + (" and the profiled ones" if profile_dir is not None else "")
+              + f": median {median:.3f} ms "
+              f"({1e3 * TRAIN_BATCH / median:.2f} images/s; all: "
+              + ", ".join(f"{i}: {v:.3f}" for i, v in steps.items())
+              + f") against phase 5's synthetic on-device step {synthetic_ms:.3f} ms "
+              f"({100 * (median / synthetic_ms - 1):+.1f}%)")
+        print(f"train CLI: validation {CLI_EVAL_FRAMES} frames of {FRAME_HW[0]}x{FRAME_HW[1]} "
+              f"at batch 1, float32: " + ", ".join(f"{v:.3f}" for v in validate_ms)
+              + " ms a frame; checkpoint saves " + ", ".join(f"{v:.1f}" for v in save_ms)
+              + f" ms, {probe.saves[0][1]} bytes each; max_memory_allocated {peak} bytes")
+        if probe.prof is not None:
+            busy_us, n_events = device_busy_us(probe.prof)
+            lo, hi = CLI_PROFILE_STEPS
+            print(f"train CLI: device-only profile over update indices {lo}-{hi} ({hi - lo + 1} "
+                  f"steps) through the driver: wall {probe.prof_wall_us / (hi - lo + 1) / 1e3:.3f}"
+                  f" ms a step (profiled), device busy {100 * busy_us / probe.prof_wall_us:.1f}%, "
+                  f"{n_events / (hi - lo + 1):.0f} device events a step")
+            out = Path(profile_dir)
+            out.mkdir(parents=True, exist_ok=True)
+            (out / "chip_smoke_profile_train_cli.txt").write_text(probe.prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40, max_name_column_width=90))
+        alone, busy = loader_contention(args, state)
+        print(f"train CLI: the driver's step on one device-resident batch, median of 6: alone "
+              f"{alone:.3f} ms, while a thread iterates the loader {busy:.3f} ms "
+              f"({100 * (busy / alone - 1):+.1f}%)")
+        del state
+
+        # --resume latest: the saved epoch and update, two more steps
+        args = parse_cli(TrainArgParser(), argv + ["--resume", "latest"])
+        args.exp_dir = str(exp_dir)
+        torch.cuda.empty_cache()
+        reset_counts()
+        state = driver.main_train(args, max_steps=CLI_RESUME_STEPS, interactive=False)
+        resumed = read_counts()
+        n = CLI_RESUME_STEPS - CLI_STEPS
+        expected = {"bins_head_fwd": CLI_EVAL_FRAMES, "bins_head_bwd": 0,
+                    "bins_head_tc_fwd": n, "bins_head_tc_bwd": 2 * n, "chamfer": n}
+        lr = state.optimizer.optimizer.param_groups[0]["lr"]
+        want_lr = onecycle_lr_schedule(args.lr, CLI_EPOCHS * CLI_STEPS_PER_EPOCH,
+                                       div_factor=args.div_factor,
+                                       final_div_factor=args.final_div_factor)(
+                                           CLI_RESUME_STEPS - 1)
+        with open(exp_dir / "events.jsonl") as f:
+            tail = [json.loads(line) for line in f][len(events):]
+        print(f"train CLI: --resume latest, main_train(max_steps={CLI_RESUME_STEPS}): step "
+              f"{state.step}, epoch {tail[0]['value'] if tail else None}, lr {lr!r} (OneCycle "
+              f"at update {CLI_RESUME_STEPS - 1}: {want_lr!r}); launches {resumed}")
+        check(state.step == CLI_RESUME_STEPS, "the resumed run did not continue")
+        check(resumed == expected, f"resumed launches {resumed}, expected {expected}")
+        check(lr == want_lr, "the resumed run's learning rate is not OneCycle's")
+        check([(e["tag"], e["step"]) for e in tail] == driver_cadence(CLI_STEPS, CLI_RESUME_STEPS)
+              and tail[0]["value"] == CLI_STEPS // CLI_STEPS_PER_EPOCH
+              and all(np.isfinite(e["value"]) for e in tail),
+              "the resumed run's JSONL is not the JAX driver's from the saved step")
+        del state
+    torch.cuda.empty_cache()
+    return counts, resumed
+
+
 def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -1027,6 +1400,7 @@ def main(argv):
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
+    from mde_tpu_torch.data import native
     from mde_tpu_torch.kernels import bins_head, build, chamfer
     from mde_tpu_torch.models import build_model
 
@@ -1037,7 +1411,7 @@ def main(argv):
     toolchain(build)
     build_all(build, {bins_head._SOURCE: bins_head.library,
                       bins_head._TC_SOURCE: bins_head.tc_library,
-                      chamfer._SOURCE: chamfer.library})
+                      chamfer._SOURCE: chamfer.library, native.SOURCE: native.library})
 
     serving_fwd = check_head_forward(bins_head, gen, 2, (FRAME_HW[0] // 2, FRAME_HW[1] // 2),
                                      "serving")[torch.float32]
@@ -1100,6 +1474,8 @@ def main(argv):
     step_against_plain(cue_b, gen, torch.bfloat16, "B")
     torch.cuda.empty_cache()
     add(no_adabins(gen))
+    for counts in train_cli(args.profile, train_ms):
+        add(counts)
     print(f"launches over the main paths (the float32 head backward from the step "
           f"checks): {launches}")
     check(all(launches.values()), f"a kernel was launched no time: {launches}")

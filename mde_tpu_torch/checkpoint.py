@@ -1,4 +1,12 @@
-"""Weights for the port, counterpart of `mde_tpu/checkpoint.py:81-245`.
+"""Weights and checkpoints for the port, counterpart of `mde_tpu/checkpoint.py`.
+
+`save_checkpoint` / `load_checkpoint` (`mde_tpu/checkpoint.py:37, :63`) write
+and read a training checkpoint in the reference layout (model_io.py:15-26):
+`torch.save` of {"model": state_dict, "optimizer": the AdamW state_dict,
+"epoch": epoch}, so `mde_tpu.checkpoint.convert_reference_checkpoint` reads a
+port checkpoint as it reads an AdaBins .pt file. One key more, "step" (the
+updates taken, which the OneCycle schedule is evaluated at), lets a resumed
+run continue its schedule; the converter ignores it.
 
 `state_dict_from_flax` turns the JAX package's (params, batch_stats) trees,
 as numpy arrays, into a port state_dict under the reference's torch names; it
@@ -7,6 +15,7 @@ is the inverse of `mde_tpu.checkpoint.convert_reference_checkpoint` and
 AdaBins .pt file into a port model.
 """
 
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -26,6 +35,31 @@ def _strip_prefixes(sd: dict) -> dict:
                       "adaptive_bins_layer.patch_transformer.embedding_convPxP")
         out[k] = v
     return out
+
+
+def save_checkpoint(state, epoch: int, filename: str, root: str = "./checkpoints") -> str:
+    """Write `state` (train/state.py: the model, its optimizer and step) to
+    root/filename in the reference layout, through a temporary file renamed
+    into place; returns the path."""
+    os.makedirs(root, exist_ok=True)
+    path = os.path.abspath(os.path.join(root, filename))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"model": state.model.state_dict(),
+                "optimizer": state.optimizer.optimizer.state_dict(),
+                "epoch": int(epoch), "step": int(state.step)}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, state):
+    """Restore a `save_checkpoint` file into `state` (its model, optimizer
+    and step), on the model's device; returns (state, epoch)."""
+    device = next(state.model.parameters()).device
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    state.model.load_state_dict(_strip_prefixes(ckpt["model"]), strict=True)
+    state.optimizer.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step"])
+    return state, int(ckpt["epoch"])
 
 
 def load_reference_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:

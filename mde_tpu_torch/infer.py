@@ -1,6 +1,6 @@
 """Library inference API, port of `mde_tpu/infer.py` (reference infer.py:66-149).
 
-InferenceHelper: single-image / PIL / directory prediction with
+InferenceHelper: single-image / array / directory prediction with
 horizontal-flip TTA averaging, bin-center extraction and 16-bit png saving
 (x1000 nyu, x256 kitti). The flip-TTA pair runs as one batch-2 forward
 ([image, flipped image]); the model takes the fused bins head, so a CUDA
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .checkpoint import load_reference_checkpoint
+from .data.decode import read_rgb, write_png
 from .data.transforms import normalize_image
 from .models import UnetAdaptiveBins
 from .ops.resize import resize_bilinear_align_corners
@@ -64,25 +65,23 @@ class InferenceHelper:
         return centers, final.permute(0, 2, 3, 1).cpu().numpy()
 
     def predict_pil(self, pil_image, visualized: bool = False):
+        """An (H, W, 3) uint8 image (a PIL image or an array); with
+        `visualized`, also the colorized depth as an (H, W, 3) uint8 array."""
         img = np.asarray(pil_image, dtype=np.float32) / 255.0
         centers, pred = self.predict(normalize_image(img)[None])
         if visualized:
-            from PIL import Image
-
             from .utils.misc import colorize
-            viz = colorize(pred[0, ..., 0], vmin=None, vmax=None, cmap="magma")
-            return centers, pred, Image.fromarray(viz)
+            return centers, pred, colorize(pred[0, ..., 0], vmin=None, vmax=None, cmap="magma")
         return centers, pred
 
     def predict_dir(self, test_dir: str, out_dir: str):
-        from PIL import Image
         os.makedirs(out_dir, exist_ok=True)
         for f in sorted(glob.glob(os.path.join(test_dir, "*"))):
-            image = np.asarray(Image.open(f), dtype=np.float32) / 255.0
+            image = read_rgb(f).astype(np.float32) / 255.0
             _, final = self.predict(normalize_image(image)[None])
             out = (final[0, ..., 0] * self.saving_factor).astype("uint16")
             basename = os.path.basename(f).split(".")[0]
-            Image.fromarray(out).save(os.path.join(out_dir, basename + ".png"))
+            write_png(os.path.join(out_dir, basename + ".png"), out)
 
 
 def main(argv):
@@ -91,8 +90,6 @@ def main(argv):
     import argparse
     from time import time
 
-    from PIL import Image
-
     parser = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
     parser.add_argument("image", nargs="?", default="test_imgs/classroom__rgb_00283.jpg")
     parser.add_argument("checkpoint", nargs="?", default="./pretrained/AdaBins_nyu.pt")
@@ -100,7 +97,7 @@ def main(argv):
                         help="torch device to run on (default cuda; cpu must be asked for)")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
-    img = Image.open(args.image)
+    img = read_rgb(args.image)
     start = time()
     helper = InferenceHelper(dataset="nyu", checkpoint_path=args.checkpoint, device=device)
     _, pred = helper.predict_pil(img)

@@ -33,7 +33,7 @@ scrubbed, and the masked metrics per image. `validate` feeds it any iterable
 of batch dicts and averages per sample, as the reference does at batch 1.
 
 Not ported: `make_multi_step` and `--steps_per_dispatch` (a TPU dispatch
-workaround); `train/driver.py` and the dataset (ROADMAP queue 1).
+workaround). `train/driver.py` drives these steps from files.
 """
 
 import numpy as np

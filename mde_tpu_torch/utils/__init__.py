@@ -1,4 +1,6 @@
-from .misc import colorize
+from .logging import SummaryLogger
+from .misc import colorize, count_parameters, denormalize, setup_exp_dir
 from .running_average import RunningAverage, RunningAverageDict
 
-__all__ = ["colorize", "RunningAverage", "RunningAverageDict"]
+__all__ = ["SummaryLogger", "colorize", "count_parameters", "denormalize", "setup_exp_dir",
+           "RunningAverage", "RunningAverageDict"]

@@ -540,3 +540,122 @@ def test_eval_step_launches_the_f32_head_once(cuda):
              bins_head.TC_BWD_LAUNCHES, chamfer.LAUNCHES)
     assert tuple(a - b for a, b in zip(after, counts)) == (1, 0, 0, 0, 0)
     assert torch.isfinite(si).all() and all(torch.isfinite(v).all() for v in metrics.values())
+
+
+def _nyu_tree(root, n_train, n_eval, eval_hw=(480, 640)):
+    """An NYU-format tree with no PIL (the card's machine has none): every
+    RGB a copy of the repo's NYU frame, random 16-bit depths (400-9,000 mm)
+    by the port's PNG writer; train frames are 480x640, eval frames the
+    repo's frame cropped to eval_hw."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from mde_tpu_torch.data.decode import read_rgb, write_png
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    frame = os.path.join(repo, "test_imgs", "classroom__rgb_00283.jpg")
+    scene = root / "classroom_0001"
+    scene.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    lines = []
+    for i in range(n_train + n_eval):
+        hw = (480, 640) if i < n_train else eval_hw
+        if i < n_train:
+            shutil.copyfile(frame, scene / f"rgb_{i}.jpg")
+        else:  # a PNG crop of the frame: the RGB-PNG path
+            write_rgb_png(scene / f"rgb_{i}.png", read_rgb(frame)[:hw[0], :hw[1]])
+        write_png(scene / f"sync_depth_{i}.png", rng.integers(400, 9000, hw).astype(np.uint16))
+        ext = "jpg" if i < n_train else "png"
+        lines.append(f"/classroom_0001/rgb_{i}.{ext} /classroom_0001/sync_depth_{i}.png 518.8579")
+    (root / "train.txt").write_text("\n".join(lines[:n_train]) + "\n")
+    (root / "eval.txt").write_text("\n".join(lines[n_train:]) + "\n")
+    return root
+
+
+def write_rgb_png(path, rgb):
+    """(H, W, 3) uint8 as an 8-bit RGB PNG."""
+    import struct
+    import zlib
+
+    import numpy as np
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, 3 * w)], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
+                                                                        0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
+
+
+def _train_argv(root, *extra):
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return [os.path.join(repo, "params", "args_train_nyu_efficientnet-b1.txt"), "--bs", "2",
+            "--epochs", "1", "--input_height", "320", "--input_width", "416", "--workers", "4",
+            "--root", str(root / "runs"), "--data_path", str(root), "--gt_path", str(root),
+            "--filenames_file", str(root / "train.txt"), "--data_path_eval", str(root),
+            "--gt_path_eval", str(root), "--filenames_file_eval", str(root / "eval.txt"),
+            *extra]
+
+
+@pytest.mark.cuda
+def test_prefetcher_batches_equal_the_loaders(cuda, tmp_path):
+    """DevicePrefetcher's batches on the card, NCHW, equal the loader's NHWC
+    batches of the same epoch bit for bit, train (native engine) and eval."""
+    import numpy as np
+
+    from mde_tpu_torch.config import TrainArgParser, parse_cli
+    from mde_tpu_torch.data import DepthDataLoader, DevicePrefetcher
+    root = _nyu_tree(tmp_path, 4, 2, eval_hw=(320, 416))
+    args = parse_cli(TrainArgParser(), _train_argv(root))
+    for mode in ("train", "online_eval"):
+        loader = DepthDataLoader(args, mode)
+        loader.set_epoch(1)
+        want = list(loader)
+        got = list(DevicePrefetcher(loader, cuda))
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for key, value in w.items():
+                if isinstance(value, np.ndarray) and value.ndim == 4:
+                    assert g[key].device.type == "cuda" and g[key].is_contiguous()
+                    assert torch.equal(g[key].cpu(), torch.from_numpy(value.transpose(0, 3, 1, 2)))
+                elif isinstance(value, np.ndarray):
+                    assert np.array_equal(g[key], value), key
+                else:
+                    assert g[key] == value, key
+
+
+@pytest.mark.cuda
+def test_driver_launches_the_kernels(cuda, tmp_path):
+    """main_train on files, bf16, batch 2 of 320x416, 2 steps and one
+    validation of 2 frames: 1/2/1 bf16 head forward / backward and chamfer
+    launches a step, one float32 head forward an eval frame; a resume takes
+    the last step of the epoch from update 2."""
+    from mde_tpu_torch.config import TrainArgParser, parse_cli
+    from mde_tpu_torch.train import main_train
+    root = _nyu_tree(tmp_path, 6, 2, eval_hw=(320, 416))
+
+    def counts():
+        return (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
+                bins_head.TC_BWD_LAUNCHES, chamfer.LAUNCHES)
+
+    before = counts()
+    args = parse_cli(TrainArgParser(), _train_argv(root, "--validate_every", "2"))
+    state = main_train(args, max_steps=2, interactive=False)
+    torch.cuda.synchronize()
+    assert state.step == 2
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 2, 4, 2)
+
+    before = counts()
+    args = parse_cli(TrainArgParser(), _train_argv(root, "--validate_every", "3",
+                                                   "--resume", "latest"))
+    args.exp_dir = str(root / "runs" / args.name)
+    state = main_train(args, interactive=False)
+    torch.cuda.synchronize()
+    assert state.step == 3
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 1, 2, 1)

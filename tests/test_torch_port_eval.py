@@ -2,7 +2,8 @@
 `make_eval_step`, `validate` and `make_train_step` with cues against mde_tpu's
 (CPU, float32).
 
-* Metrics: `compute_errors_masked` rtol 1e-5 (float32 sums in other orders);
+* Metrics: `compute_errors_masked` rtol 1e-5 (float32 sums in other orders;
+  the JAX side under `jax.jit`, one compile instead of one per op);
   `compute_errors` and `eval_mask` equal.
 * Eval step and validate, configuration A (tests/test_torch_port_cues.py) at
   320x416 with a 480x640 GT, so the prediction is resized: per-image SILog
@@ -68,7 +69,7 @@ def _gt_pred(seed, shape=(3, 37, 53)):
 def test_compute_errors_masked_matches_jax():
     """Per image (the eval step's dim=(-2, -1)), against JAX's vmapped form."""
     gt, pred, mask = _gt_pred(0)
-    want = jax.vmap(jax_metrics.compute_errors_masked)(
+    want = jax.jit(jax.vmap(jax_metrics.compute_errors_masked))(
         jnp.asarray(gt), jnp.asarray(pred), jnp.asarray(mask))
     got = metrics.compute_errors_masked(torch.from_numpy(gt), torch.from_numpy(pred),
                                         torch.from_numpy(mask), dim=(-2, -1))
@@ -79,7 +80,7 @@ def test_compute_errors_masked_matches_jax():
                                    err_msg=name)
     whole = metrics.compute_errors_masked(torch.from_numpy(gt), torch.from_numpy(pred),
                                           torch.from_numpy(mask))
-    want_whole = jax_metrics.compute_errors_masked(gt, pred, mask)
+    want_whole = jax.jit(jax_metrics.compute_errors_masked)(gt, pred, mask)
     for name in metrics.METRIC_NAMES:
         np.testing.assert_allclose(whole[name].item(), float(want_whole[name]), rtol=1e-5)
 

@@ -8,6 +8,10 @@ orders); the chamfer value rtol 1e-5 and its gradient to the bin edges
 rtol 1e-4 / atol 1e-6, those of tests/test_kernels.py:23-59; the per-bin and
 per-pixel reductions rtol 1e-5 / atol 1e-6.
 
+The JAX references run under `jax.jit`, one compile each: run op by op they
+cost 1.5-2.5 s a case on the CPU, and they agree with the op-by-op values
+to ~1e-8.
+
 The nearest depth of a bin is compared on tie-free data only: the Pallas
 kernel keeps the first strict winner of each lane and then picks a lane, the
 port keeps the lowest pixel index (ROADMAP §3 "Chamfer tie semantics"). The
@@ -50,7 +54,7 @@ def test_silog_value_and_gradient_match_jax(interpolate, masked):
         return jax_losses.silog_loss(p, jnp.asarray(target),
                                      None if mask is None else jnp.asarray(mask), interpolate)
 
-    want, want_grad = jax.value_and_grad(jax_loss)(jnp.asarray(pred))
+    want, want_grad = jax.jit(jax.value_and_grad(jax_loss))(jnp.asarray(pred))
     p = _nchw(pred).requires_grad_()
     got = losses.silog_loss(p, _nchw(target), None if mask is None else _nchw(mask), interpolate)
     got.backward()
@@ -100,7 +104,7 @@ def test_chamfer_value_and_gradient_match_jax(case, pair):
         fn = lambda e: jax_chamfer.chamfer_1d_pallas(e, jnp.asarray(depth), tile=128,
                                                      interpret=True)
         port = chamfer.chamfer_1d
-    want, want_grad = jax.value_and_grad(fn)(jnp.asarray(edges))
+    want, want_grad = jax.jit(jax.value_and_grad(fn))(jnp.asarray(edges))
     got, got_grad = _port_value_and_grad(port, edges, depth)
     np.testing.assert_allclose(got, float(want), rtol=1e-5)
     np.testing.assert_allclose(got_grad, np.asarray(want_grad), rtol=1e-4, atol=1e-6)
@@ -114,7 +118,7 @@ def test_chamfer_all_invalid_image_gives_zero(port_fn):
     depth[1] = 0.0
     fn = lambda e: jax_chamfer.chamfer_1d_pallas(e, jnp.asarray(depth), tile=128,
                                                  interpret=True)
-    want, want_grad = jax.value_and_grad(fn)(jnp.asarray(edges))
+    want, want_grad = jax.jit(jax.value_and_grad(fn))(jnp.asarray(edges))
     got, got_grad = _port_value_and_grad(port_fn, edges, depth)
     np.testing.assert_allclose(got, float(want), rtol=1e-5)
     np.testing.assert_allclose(got_grad, np.asarray(want_grad), rtol=1e-4, atol=1e-6)
@@ -127,12 +131,14 @@ def _pallas_reductions(centers, depth_flat, tile=128):
     """Per image through the Pallas kernel, in interpret mode."""
     m = depth_flat.shape[1]
     pad = (-m) % tile
+    reductions = jax.jit(lambda d, v, c: jax_chamfer._chamfer_reductions(
+        d, v, c, tile, interpret=True))
     outs = []
     for c, d in zip(centers, depth_flat):
         d = np.pad(d, (0, pad))
         valid = ((d >= 1e-3) & (np.arange(d.size) < m)).astype(np.float32)
-        outs.append([np.asarray(o) for o in jax_chamfer._chamfer_reductions(
-            jnp.asarray(d), jnp.asarray(valid), jnp.asarray(c), tile, interpret=True)])
+        outs.append([np.asarray(o) for o in reductions(
+            jnp.asarray(d), jnp.asarray(valid), jnp.asarray(c))])
     return [np.stack(o) for o in zip(*outs)]
 
 
@@ -174,8 +180,8 @@ def test_chamfer_tie_case_value_and_pixel_side_match_pallas():
     np.testing.assert_allclose(got[3], sumd_pb, rtol=1e-6)
     np.testing.assert_allclose(got[4].sum(1), sum_y, rtol=1e-6)
     assert got[2][0, 0] % 1 == 0.5  # the split count
-    want = jax_chamfer.chamfer_1d_pallas(jnp.asarray(edges), jnp.asarray(depth), tile=128,
-                                         interpret=True)
+    want = jax.jit(lambda e, d: jax_chamfer.chamfer_1d_pallas(e, d, tile=128, interpret=True))(
+        jnp.asarray(edges), jnp.asarray(depth))
     for port_fn in (losses.bins_chamfer_loss, chamfer.chamfer_1d):
         np.testing.assert_allclose(port_fn(_t(edges), _nchw(depth)).item(), float(want),
                                    rtol=1e-6)

@@ -1,6 +1,6 @@
 """Port parity, ops: mde_tpu_torch.ops against mde_tpu.ops (CPU, float32),
-and the port's import boundary (no jax, no flax, no mde_tpu; no PIL at
-import time).
+and the port's import boundary (no jax, no flax, no mde_tpu, no PIL: the
+card's machine has no Pillow, so the port decodes images itself).
 
 Tolerance rtol 1e-6, with atol 1e-6 for values near zero: the JAX resize is
 two f32 matmuls over taps computed in f64, torch's interpolates with taps
@@ -30,8 +30,9 @@ SLICE_MODULES = ["mde_tpu_torch", "mde_tpu_torch.ops", "mde_tpu_torch.ops.losses
                  "mde_tpu_torch.kernels", "mde_tpu_torch.kernels.build",
                  "mde_tpu_torch.kernels.chamfer", "mde_tpu_torch.models",
                  "mde_tpu_torch.checkpoint", "mde_tpu_torch.data", "mde_tpu_torch.infer",
-                 "mde_tpu_torch.train", "mde_tpu_torch.utils"]
-FORBIDDEN = ("jax", "flax", "mde_tpu")
+                 "mde_tpu_torch.train", "mde_tpu_torch.utils", "mde_tpu_torch.config",
+                 "mde_tpu_torch.train.driver", "mde_tpu_torch.train.__main__"]
+FORBIDDEN = ("jax", "flax", "mde_tpu", "PIL")
 
 
 def test_port_imports_no_jax_flax_or_pil():
