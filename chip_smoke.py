@@ -6,7 +6,8 @@
                                           # and the cue ops' share of the A step
 
 Phases, each of which ends the run with a non-zero exit if it fails:
-  1. toolchain: torch, CUDA, nvcc, device capability, triton, card and power
+  1. toolchain: torch, CUDA, nvcc, device capability, triton, card and power,
+     and whether matplotlib and scipy are there (the figures will need them)
   2. build the kernels of mde_tpu_torch/csrc with nvcc, one process per
      source, all at once (bins_head.cu: the float32 head forward and
      backward on the CUDA cores; bins_head_tc.cu: the bfloat16 head forward
@@ -75,10 +76,41 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      alone, the validation ms a frame, the checkpoint save ms and bytes, the
      peak device memory and (with --profile) the device's busy share over
      steps 3-8 through the driver
-  9. one JSON line on the kernels (launches summed over the main paths:
-     serving, training, the eval and cue training runs, the train CLI; the
-     float32 head backward, which no main path runs, from the float32 step
-     checks), then the result line.
+  9. evaluation, data parallelism, remat and the pretrained backbone, on the
+     phase-8 tree:
+     (a) `python -m mde_tpu_torch.evaluate params/args_test_nyu.txt` in
+         process (`main(argv)`): B5, 256 bins, float32, the 16 eval frames
+         of 480x640 at batch 1, a seeded B5 checkpoint written by
+         save_checkpoint, --save_dir; exactly one float32 head forward a
+         frame and no other kernel, finite rounded metrics, one 16-bit PNG a
+         frame under the JAX package's names, the metrics within 1e-4
+         relative of the same frames through the plain head; ms a frame and
+         peak bytes
+     (b) two gloo ranks spawned on the one card (NCCL refuses two ranks on
+         one device), the flagship under DDP at a global batch of 16, 8 a
+         rank: 2 warm-up and 6 timed bf16 steps, 1/2/1 bf16 head forward /
+         backward and chamfer launches a rank a step, equal losses on the
+         ranks; 6 interleaved pairs of bf16 steps timing DDP's former
+         find_unused_parameters=True beside wrap_ddp's ignore list (launches
+         not counted); one float32 step, the mViT's dropout off (the ranks draw
+         their own masks), against one process's on the 16 images (loss
+         rtol 2e-4, gradients within 2e-2 of the largest value, equal on
+         the ranks); then main_train under --distributed with a
+         torchrun environment of one rank: NCCL, the DDP wrapper, 2 steps
+         and a validation with their exact launches
+     (c) --remat encoder: its first step against the step without remat
+         from the phase-5 weights (loss within 1e-3, BN buffers moved once),
+         then 2 + 8 timed steps beside phase 5's: a lower peak
+     (d) --pretrained_backbone: a seeded B1 .npz into configuration A's
+         73-channel stem: the RGB slice the file's, the cue slice untouched,
+         every other weight and BN stat the file's
+     and phase 3 also times chamfer_wide_kernel (512 bins, on no main path)
+     against its plain version and its bound.
+ 10. one JSON line on the kernels (launches summed over the main paths:
+     serving, training, the eval and cue training runs, the train CLI, the
+     B5 evaluation, both DDP ranks, the DDP driver run and the remat steps;
+     the float32 head backward, which no main path runs, from the float32
+     step checks), then the result line.
 
 float32 comparisons run with TF32 off for both cuDNN and cuBLAS. The script
 imports no JAX: it is the quickest proof that the port runs on the card.
@@ -86,6 +118,7 @@ imports no JAX: it is the quickest proof that the port runs on the card.
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import re
@@ -201,7 +234,10 @@ def toolchain(build):
             "triton": triton_version, "nvidia_smi": smi,
             "cudnn": torch.backends.cudnn.version(),
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            # the figures of utils/graphs.py need matplotlib, color150.mat scipy
+            "matplotlib": importlib.util.find_spec("matplotlib") is not None,
+            "scipy": importlib.util.find_spec("scipy") is not None}
     print("toolchain: " + json.dumps(info))
     print(smi)
     return smi
@@ -926,7 +962,7 @@ def run_validate(args, model, frames):
         t0 = time.perf_counter()
         out = eval_step(*a)
         torch.cuda.synchronize()
-        steps.append(((time.perf_counter() - t0) * 1e3, *out))
+        steps.append(((time.perf_counter() - t0) * 1e3, *out[:2]))
         return out
 
     hook = model.register_forward_hook(lambda m, i, out: preds.append(out[1].clone()))
@@ -1253,8 +1289,20 @@ def loader_contention(args, state, steps=6):
     return alone, busy
 
 
-def train_cli(profile_dir, synthetic_ms):
-    """Phase 8; returns the launches of the two driver runs."""
+def cli_argv(root, params_file=PARAMS_FILE):
+    """The phase-8 tree's paths, with the flagship's batch and cadence."""
+    data = str(root / "nyu")
+    return [params_file, "--bs", str(TRAIN_BATCH), "--epochs", str(CLI_EPOCHS),
+            "--validate_every", str(CLI_VALIDATE_EVERY), "--root", str(root / "runs"),
+            "--data_path", data, "--gt_path", data,
+            "--filenames_file", str(root / "nyu" / "train.txt"),
+            "--data_path_eval", data, "--gt_path_eval", data,
+            "--filenames_file_eval", str(root / "nyu" / "eval.txt")]
+
+
+def train_cli(root, profile_dir, synthetic_ms):
+    """Phase 8 on the tree under `root`; returns the launches of the two
+    driver runs."""
     from mde_tpu_torch.config import TrainArgParser, parse_cli
     from mde_tpu_torch.data import read_rgb
     from mde_tpu_torch.train import driver, onecycle_lr_schedule
@@ -1265,128 +1313,547 @@ def train_cli(profile_dir, synthetic_ms):
           f"sha256 {digest}")
     check(digest == CLASSROOM_SHA256, "the port's JPEG decode differs from PIL's")
 
-    build_dir = REPO / ".build"
-    build_dir.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        nyu_tree(root / "nyu")
-        print(f"train CLI: tree of {CLI_TRAIN_FRAMES} + {CLI_EVAL_FRAMES} frames in "
-              f"{time.perf_counter() - t0:.2f} s")
-        data = str(root / "nyu")
-        argv = [PARAMS_FILE, "--bs", str(TRAIN_BATCH), "--epochs", str(CLI_EPOCHS),
-                "--validate_every", str(CLI_VALIDATE_EVERY), "--root", str(root / "runs"),
-                "--data_path", data, "--gt_path", data,
-                "--filenames_file", str(root / "nyu" / "train.txt"),
-                "--data_path_eval", data, "--gt_path_eval", data,
-                "--filenames_file_eval", str(root / "nyu" / "eval.txt")]
-        args = parse_cli(TrainArgParser(), argv)
-        print(f"train CLI: {PARAMS_FILE} + overrides: bs {args.bs}, epochs {args.epochs}, "
-              f"validate_every {args.validate_every}, n_bins {args.n_bins}, "
-              f"{args.input_height}x{args.input_width}, {args.compute_dtype}, workers "
-              f"{args.workers}, device {args.device}, distributed {args.distributed}")
-        batch_ms = loader_batch_ms(args)
-        print(f"train CLI: the loader alone, one batch of {TRAIN_BATCH} (native decode and "
-              f"augment, {args.num_threads} threads, os.cpu_count() {os.cpu_count()}): first "
-              f"{batch_ms[0]:.3f} ms, second {batch_ms[1]:.3f} ms")
+    t0 = time.perf_counter()
+    nyu_tree(root / "nyu")
+    print(f"train CLI: tree of {CLI_TRAIN_FRAMES} + {CLI_EVAL_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.2f} s")
+    argv = cli_argv(root)
+    args = parse_cli(TrainArgParser(), argv)
+    print(f"train CLI: {PARAMS_FILE} + overrides: bs {args.bs}, epochs {args.epochs}, "
+          f"validate_every {args.validate_every}, n_bins {args.n_bins}, "
+          f"{args.input_height}x{args.input_width}, {args.compute_dtype}, workers "
+          f"{args.workers}, device {args.device}, distributed {args.distributed}")
+    batch_ms = loader_batch_ms(args)
+    print(f"train CLI: the loader alone, one batch of {TRAIN_BATCH} (native decode and "
+          f"augment, {args.num_threads} threads, os.cpu_count() {os.cpu_count()}): first "
+          f"{batch_ms[0]:.3f} ms, second {batch_ms[1]:.3f} ms")
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with DriverProbe(driver, profile_dir is not None) as probe:
+        t0 = time.perf_counter()
+        state = driver.main_train(args, max_steps=CLI_STEPS, interactive=False)
+        run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"bins_head_fwd": 2 * CLI_EVAL_FRAMES, "bins_head_bwd": 0,
+                "bins_head_tc_fwd": CLI_STEPS, "bins_head_tc_bwd": 2 * CLI_STEPS,
+                "chamfer": CLI_STEPS}
+    print(f"train CLI: main_train(max_steps={CLI_STEPS}) in {run_s:.2f} s, {state.step} "
+          f"steps; launches {counts}, expected {expected}")
+    check(state.step == CLI_STEPS, "the driver did not take its steps")
+    check(counts == expected, f"train CLI launches {counts}, expected {expected}")
+
+    exp_dir = Path(args.exp_dir)
+    with open(exp_dir / "events.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    check([(e["tag"], e["step"]) for e in events] == driver_cadence(0, CLI_STEPS),
+          "train CLI: the JSONL's tags and steps are not the JAX driver's")
+    check(all(np.isfinite(e["value"]) for e in events), "train CLI: a logged value is "
+          "not finite")
+    losses = [(e["step"], round(e["value"], 6)) for e in events if e["tag"] == "Train/Loss"]
+    latest = sorted(exp_dir.glob("*_latest.pt"))
+    best = sorted(exp_dir.glob("*_best.pt"))
+    check(len(latest) == 1 and len(best) == 1, "train CLI: latest or best missing")
+    validate_ms = [ms / n for ms, n in probe.validations]
+    save_ms = [ms for ms, _ in probe.saves]
+    skip = {v for v in range(CLI_VALIDATE_EVERY, CLI_STEPS, CLI_VALIDATE_EVERY)}
+    if profile_dir is not None:  # the profiled steps and the trace's collection
+        skip |= set(range(CLI_PROFILE_STEPS[0], CLI_PROFILE_STEPS[1] + 2))
+    steps = probe.step_ms(3, CLI_STEPS - 1, skip)
+    median = statistics.median(steps.values())
+    print(f"train CLI: Train/Loss {losses}; Test/SILog "
+          f"{[round(e['value'], 6) for e in events if e['tag'] == 'Test/SILog']}")
+    print(f"train CLI: step wall through the driver (from the end of the step before: "
+          f"loader wait, step, bookkeeping), update indices 3-{CLI_STEPS - 1} less "
+          f"those after a validation"
+          + (" and the profiled ones" if profile_dir is not None else "")
+          + f": median {median:.3f} ms "
+          f"({1e3 * TRAIN_BATCH / median:.2f} images/s; all: "
+          + ", ".join(f"{i}: {v:.3f}" for i, v in steps.items())
+          + f") against phase 5's synthetic on-device step {synthetic_ms:.3f} ms "
+          f"({100 * (median / synthetic_ms - 1):+.1f}%)")
+    print(f"train CLI: validation {CLI_EVAL_FRAMES} frames of {FRAME_HW[0]}x{FRAME_HW[1]} "
+          f"at batch 1, float32: " + ", ".join(f"{v:.3f}" for v in validate_ms)
+          + " ms a frame; checkpoint saves " + ", ".join(f"{v:.1f}" for v in save_ms)
+          + f" ms, {probe.saves[0][1]} bytes each; max_memory_allocated {peak} bytes")
+    if probe.prof is not None:
+        busy_us, n_events = device_busy_us(probe.prof)
+        lo, hi = CLI_PROFILE_STEPS
+        print(f"train CLI: device-only profile over update indices {lo}-{hi} ({hi - lo + 1} "
+              f"steps) through the driver: wall {probe.prof_wall_us / (hi - lo + 1) / 1e3:.3f}"
+              f" ms a step (profiled), device busy {100 * busy_us / probe.prof_wall_us:.1f}%, "
+              f"{n_events / (hi - lo + 1):.0f} device events a step")
+        out = Path(profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "chip_smoke_profile_train_cli.txt").write_text(probe.prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=40, max_name_column_width=90))
+    alone, busy = loader_contention(args, state)
+    print(f"train CLI: the driver's step on one device-resident batch, median of 6: alone "
+          f"{alone:.3f} ms, while a thread iterates the loader {busy:.3f} ms "
+          f"({100 * (busy / alone - 1):+.1f}%)")
+    del state
+
+    # --resume latest: the saved epoch and update, two more steps
+    args = parse_cli(TrainArgParser(), argv + ["--resume", "latest"])
+    args.exp_dir = str(exp_dir)
+    torch.cuda.empty_cache()
+    reset_counts()
+    state = driver.main_train(args, max_steps=CLI_RESUME_STEPS, interactive=False)
+    resumed = read_counts()
+    n = CLI_RESUME_STEPS - CLI_STEPS
+    expected = {"bins_head_fwd": CLI_EVAL_FRAMES, "bins_head_bwd": 0,
+                "bins_head_tc_fwd": n, "bins_head_tc_bwd": 2 * n, "chamfer": n}
+    lr = state.optimizer.optimizer.param_groups[0]["lr"]
+    want_lr = onecycle_lr_schedule(args.lr, CLI_EPOCHS * CLI_STEPS_PER_EPOCH,
+                                   div_factor=args.div_factor,
+                                   final_div_factor=args.final_div_factor)(
+                                       CLI_RESUME_STEPS - 1)
+    with open(exp_dir / "events.jsonl") as f:
+        tail = [json.loads(line) for line in f][len(events):]
+    print(f"train CLI: --resume latest, main_train(max_steps={CLI_RESUME_STEPS}): step "
+          f"{state.step}, epoch {tail[0]['value'] if tail else None}, lr {lr!r} (OneCycle "
+          f"at update {CLI_RESUME_STEPS - 1}: {want_lr!r}); launches {resumed}")
+    check(state.step == CLI_RESUME_STEPS, "the resumed run did not continue")
+    check(resumed == expected, f"resumed launches {resumed}, expected {expected}")
+    check(lr == want_lr, "the resumed run's learning rate is not OneCycle's")
+    check([(e["tag"], e["step"]) for e in tail] == driver_cadence(CLI_STEPS, CLI_RESUME_STEPS)
+          and tail[0]["value"] == CLI_STEPS // CLI_STEPS_PER_EPOCH
+          and all(np.isfinite(e["value"]) for e in tail),
+          "the resumed run's JSONL is not the JAX driver's from the saved step")
+    del state
+    torch.cuda.empty_cache()
+    return counts, resumed
+
+
+# --- phase 9: evaluation at B5, DDP, remat, the pretrained backbone --------
+
+EVAL_PARAMS_FILE = "params/args_test_nyu.txt"
+DDP_RANKS, DDP_WARMUP, DDP_STEPS = 2, 2, 6
+# float32, of the largest gradient value (tests/test_torch_port_ddp.py GRAD_TOL)
+DDP_GRAD_TOL = 2e-2
+REMAT_LOSS_TOL = 1e-3  # relative: the same forward, bf16 autocast
+WIDE_BINS = 512  # above the 256 bins chamfer_kernel keeps in registers
+
+
+def check_chamfer_wide(chamfer):
+    """chamfer_wide_kernel, which runs above 256 bins (no params file does),
+    against its plain version on uniform noise at the flagship's pixels,
+    with its own generator so that later phases draw what they drew."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    _, centers = centers_from(torch.rand((TRAIN_BATCH, WIDE_BINS), generator=gen))
+    depth = 0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)
+    return check_chamfer_reductions(chamfer, centers.cuda(), depth.cuda(),
+                                    f"noise, {WIDE_BINS} bins, chamfer_wide_kernel")
+
+
+def eval_cli(root, gen):
+    """Phase 9a: `python -m mde_tpu_torch.evaluate params/args_test_nyu.txt`
+    (B5, 256 bins, float32, batch 1 of 480x640) in-process on the phase-8
+    eval split, with a seeded B5 checkpoint written by save_checkpoint and
+    --save_dir; returns the launches."""
+    from mde_tpu_torch import evaluate as ev
+    from mde_tpu_torch.checkpoint import save_checkpoint
+    from mde_tpu_torch.config import EvalArgParser, parse_cli
+    from mde_tpu_torch.data import read_png
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.ops import METRIC_NAMES
+    from mde_tpu_torch.train import create_train_state
+
+    data, out = str(root / "nyu"), root / "b5"
+    argv = [EVAL_PARAMS_FILE, "--data_path_eval", data, "--gt_path_eval", data,
+            "--filenames_file_eval", str(root / "nyu" / "eval.txt"),
+            "--checkpoint_path", str(out / "b5_seeded.pt"), "--save_dir", str(out / "pred")]
+    args = parse_cli(EvalArgParser(), argv, mode="eval")
+    model = build_model(args)
+    model.load_state_dict(seeded_state_dict(model, gen), strict=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    save_checkpoint(create_train_state(model, flagship_args(encoder_name=args.encoder_name), 1),
+                    0, "b5_seeded.pt", root=str(out))
+    del model
+
+    steps, unrounded = [], []
+    real_step, real_run = ev.make_eval_step, ev.run_evaluation
+
+    def make_eval_step(*a, **k):
+        step = real_step(*a, **k)
+
+        def timed(*x):
+            t0 = time.perf_counter()
+            result = step(*x)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            return result
+        return timed
+
+    def run_evaluation(*a, **k):
+        vals, invalid = real_run(*a, **k)
+        unrounded.append(vals)
+        return vals, invalid
+
+    ev.make_eval_step, ev.run_evaluation = make_eval_step, run_evaluation
+    try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        with DriverProbe(driver, profile_dir is not None) as probe:
-            t0 = time.perf_counter()
-            state = driver.main_train(args, max_steps=CLI_STEPS, interactive=False)
-            run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rounded = ev.main(argv)
+        wall = time.perf_counter() - t0
         counts = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        expected = {"bins_head_fwd": 2 * CLI_EVAL_FRAMES, "bins_head_bwd": 0,
-                    "bins_head_tc_fwd": CLI_STEPS, "bins_head_tc_bwd": 2 * CLI_STEPS,
-                    "chamfer": CLI_STEPS}
-        print(f"train CLI: main_train(max_steps={CLI_STEPS}) in {run_s:.2f} s, {state.step} "
-              f"steps; launches {counts}, expected {expected}")
-        check(state.step == CLI_STEPS, "the driver did not take its steps")
-        check(counts == expected, f"train CLI launches {counts}, expected {expected}")
+    finally:
+        ev.make_eval_step, ev.run_evaluation = real_step, real_run
+    peak = torch.cuda.max_memory_allocated()
+    median = statistics.median(steps[1:])
+    print(f"evaluate B5: {EVAL_PARAMS_FILE} ({args.encoder_name}, {args.n_bins} bins, "
+          f"{args.compute_dtype}, {n_params} parameters), {len(steps)} frames of "
+          f"{FRAME_HW[0]}x{FRAME_HW[1]} at batch 1: median {median:.3f} ms a frame after the "
+          f"first (all: {', '.join(f'{v:.3f}' for v in steps)}), main() {wall:.2f} s, "
+          f"max_memory_allocated {peak} bytes; launches {counts}; metrics {rounded}")
+    check(counts == {**{k: 0 for k in counts}, "bins_head_fwd": CLI_EVAL_FRAMES},
+          f"evaluate B5: launches {counts} for {CLI_EVAL_FRAMES} frames")
+    check(all(np.isfinite(v) for v in rounded.values()), "evaluate B5: a metric is not finite")
+    lines = (root / "nyu" / "eval.txt").read_text().split()[0::3]
+    for image_path in lines:
+        path, _ = ev.prediction_path(image_path, args)
+        png = read_png(path)
+        check(png.shape == FRAME_HW and png.dtype == np.uint16 and png.max() > 0,
+              f"evaluate B5: {path}: {png.shape} {png.dtype}")
+    check(len(os.listdir(out / "pred")) == CLI_EVAL_FRAMES, "evaluate B5: PNG count")
 
-        exp_dir = Path(args.exp_dir)
-        with open(exp_dir / "events.jsonl") as f:
-            events = [json.loads(line) for line in f]
-        check([(e["tag"], e["step"]) for e in events] == driver_cadence(0, CLI_STEPS),
-              "train CLI: the JSONL's tags and steps are not the JAX driver's")
-        check(all(np.isfinite(e["value"]) for e in events), "train CLI: a logged value is "
-              "not finite")
-        losses = [(e["step"], round(e["value"], 6)) for e in events if e["tag"] == "Train/Loss"]
-        latest = sorted(exp_dir.glob("*_latest.pt"))
-        best = sorted(exp_dir.glob("*_best.pt"))
-        check(len(latest) == 1 and len(best) == 1, "train CLI: latest or best missing")
-        validate_ms = [ms / n for ms, n in probe.validations]
-        save_ms = [ms for ms, _ in probe.saves]
-        skip = {v for v in range(CLI_VALIDATE_EVERY, CLI_STEPS, CLI_VALIDATE_EVERY)}
-        if profile_dir is not None:  # the profiled steps and the trace's collection
-            skip |= set(range(CLI_PROFILE_STEPS[0], CLI_PROFILE_STEPS[1] + 2))
-        steps = probe.step_ms(3, CLI_STEPS - 1, skip)
-        median = statistics.median(steps.values())
-        print(f"train CLI: Train/Loss {losses}; Test/SILog "
-              f"{[round(e['value'], 6) for e in events if e['tag'] == 'Test/SILog']}")
-        print(f"train CLI: step wall through the driver (from the end of the step before: "
-              f"loader wait, step, bookkeeping), update indices 3-{CLI_STEPS - 1} less "
-              f"those after a validation"
-              + (" and the profiled ones" if profile_dir is not None else "")
-              + f": median {median:.3f} ms "
-              f"({1e3 * TRAIN_BATCH / median:.2f} images/s; all: "
-              + ", ".join(f"{i}: {v:.3f}" for i, v in steps.items())
-              + f") against phase 5's synthetic on-device step {synthetic_ms:.3f} ms "
-              f"({100 * (median / synthetic_ms - 1):+.1f}%)")
-        print(f"train CLI: validation {CLI_EVAL_FRAMES} frames of {FRAME_HW[0]}x{FRAME_HW[1]} "
-              f"at batch 1, float32: " + ", ".join(f"{v:.3f}" for v in validate_ms)
-              + " ms a frame; checkpoint saves " + ", ".join(f"{v:.1f}" for v in save_ms)
-              + f" ms, {probe.saves[0][1]} bytes each; max_memory_allocated {peak} bytes")
-        if probe.prof is not None:
-            busy_us, n_events = device_busy_us(probe.prof)
-            lo, hi = CLI_PROFILE_STEPS
-            print(f"train CLI: device-only profile over update indices {lo}-{hi} ({hi - lo + 1} "
-                  f"steps) through the driver: wall {probe.prof_wall_us / (hi - lo + 1) / 1e3:.3f}"
-                  f" ms a step (profiled), device busy {100 * busy_us / probe.prof_wall_us:.1f}%, "
-                  f"{n_events / (hi - lo + 1):.0f} device events a step")
-            out = Path(profile_dir)
-            out.mkdir(parents=True, exist_ok=True)
-            (out / "chip_smoke_profile_train_cli.txt").write_text(probe.prof.key_averages().table(
-                sort_by="self_device_time_total", row_limit=40, max_name_column_width=90))
-        alone, busy = loader_contention(args, state)
-        print(f"train CLI: the driver's step on one device-resident batch, median of 6: alone "
-              f"{alone:.3f} ms, while a thread iterates the loader {busy:.3f} ms "
-              f"({100 * (busy / alone - 1):+.1f}%)")
-        del state
-
-        # --resume latest: the saved epoch and update, two more steps
-        args = parse_cli(TrainArgParser(), argv + ["--resume", "latest"])
-        args.exp_dir = str(exp_dir)
-        torch.cuda.empty_cache()
-        reset_counts()
-        state = driver.main_train(args, max_steps=CLI_RESUME_STEPS, interactive=False)
-        resumed = read_counts()
-        n = CLI_RESUME_STEPS - CLI_STEPS
-        expected = {"bins_head_fwd": CLI_EVAL_FRAMES, "bins_head_bwd": 0,
-                    "bins_head_tc_fwd": n, "bins_head_tc_bwd": 2 * n, "chamfer": n}
-        lr = state.optimizer.optimizer.param_groups[0]["lr"]
-        want_lr = onecycle_lr_schedule(args.lr, CLI_EPOCHS * CLI_STEPS_PER_EPOCH,
-                                       div_factor=args.div_factor,
-                                       final_div_factor=args.final_div_factor)(
-                                           CLI_RESUME_STEPS - 1)
-        with open(exp_dir / "events.jsonl") as f:
-            tail = [json.loads(line) for line in f][len(events):]
-        print(f"train CLI: --resume latest, main_train(max_steps={CLI_RESUME_STEPS}): step "
-              f"{state.step}, epoch {tail[0]['value'] if tail else None}, lr {lr!r} (OneCycle "
-              f"at update {CLI_RESUME_STEPS - 1}: {want_lr!r}); launches {resumed}")
-        check(state.step == CLI_RESUME_STEPS, "the resumed run did not continue")
-        check(resumed == expected, f"resumed launches {resumed}, expected {expected}")
-        check(lr == want_lr, "the resumed run's learning rate is not OneCycle's")
-        check([(e["tag"], e["step"]) for e in tail] == driver_cadence(CLI_STEPS, CLI_RESUME_STEPS)
-              and tail[0]["value"] == CLI_STEPS // CLI_STEPS_PER_EPOCH
-              and all(np.isfinite(e["value"]) for e in tail),
-              "the resumed run's JSONL is not the JAX driver's from the saved step")
-        del state
+    # the same frames through the plain head, without the save path
+    model = ev.load_eval_model(args, torch.device("cuda"))
+    model.fused_head = False
+    args.save_dir = None
+    reset_counts()
+    plain, _ = real_run(args, model)
+    check(read_counts() == {k: 0 for k in counts}, "evaluate B5: the plain head launched")
+    err = max(abs(unrounded[0][k] - plain[k]) / abs(plain[k]) for k in METRIC_NAMES)
+    print(f"evaluate B5: {CLI_EVAL_FRAMES} 16-bit PNGs of {FRAME_HW[0]}x{FRAME_HW[1]} under "
+          f"the JAX package's names; metrics against the plain head, largest relative "
+          f"difference {err:.3e} (tolerance {METRIC_TOL})")
+    check(err <= METRIC_TOL, f"evaluate B5: fused vs plain head metrics {err:.3e}")
+    del model
     torch.cuda.empty_cache()
-    return counts, resumed
+    return counts
+
+
+def ddp_batch():
+    """The phase-9 global batch, from its own seed: image N(0,1), depth
+    U(0.05, 9.95) m, on the host."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    return {"image": torch.randn((TRAIN_BATCH, 3, *TRAIN_HW), generator=gen),
+            "depth": 0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)}
+
+
+def watched_step(state, args, batch):
+    """One training step; returns (metrics as floats, the gradients the
+    optimizer received, on the host)."""
+    from mde_tpu_torch.train import make_train_step
+    seen = {}
+    real = state.optimizer.step
+
+    def watch(index):
+        seen.update({k: torch.zeros_like(p) if p.grad is None else p.grad.detach().cpu()
+                     for k, p in state.model.named_parameters()})
+        return real(index)
+
+    state.optimizer.step = watch
+    state, metrics = make_train_step(args)(state, batch)
+    torch.cuda.synchronize()
+    return {k: v.item() for k, v in metrics.items()}, seen
+
+
+def ddp_rank(rank, port, weights_path, out_dir):
+    """Phase 9b, one spawned rank on the card: the gloo group, the flagship
+    step under DDP on its 8 of the 16 images, bf16 (warm-up and timed steps,
+    launches counted) and then one float32 step."""
+    from mde_tpu_torch import parallel
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state, make_train_step, wrap_ddp
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.init_distributed(rank, DDP_RANKS, f"tcp://127.0.0.1:{port}", "gloo", "cuda")
+    try:
+        weights = torch.load(weights_path)
+        n = TRAIN_BATCH // DDP_RANKS
+        shard = {k: v[rank * n:(rank + 1) * n].cuda() for k, v in ddp_batch().items()}
+        out = {}
+        for dtype in ("bfloat16", "float32"):
+            args = flagship_args(compute_dtype=dtype)
+            model = build_model(args)
+            model.load_state_dict(weights, strict=True)
+            if dtype == "float32":
+                no_dropout(model)
+            state = wrap_ddp(create_train_state(model.cuda(), args, steps_per_epoch=2693), [0])
+            if dtype == "float32":
+                out["f32"] = watched_step(state, args, shard)
+                continue
+            step = make_train_step(args)
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(DDP_WARMUP):
+                state, _ = step(state, shard)
+            torch.cuda.synchronize()
+            ms, per_step, losses = [], [], []
+            for _ in range(DDP_STEPS):
+                counts = read_counts()
+                t0 = time.perf_counter()
+                state, m = step(state, shard)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                per_step.append({k: v - counts[k] for k, v in read_counts().items()})
+                losses.append(m["loss"].item())
+            out["bf16"] = dict(ms=ms, per_step=per_step, launches=read_counts(), losses=losses,
+                               peak=torch.cuda.max_memory_allocated())
+            out["bf16"]["search_ms"] = unused_search_ms(state, step, shard, weights, args)
+            del state, model, step
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        parallel.destroy_distributed()
+
+
+def unused_search_ms(state, step, shard, weights, args):
+    """Interleaved steps of `state` (wrap_ddp: the encoder's unused BatchNorm
+    left out of DDP) and of the same model under DDP's former setting,
+    find_unused_parameters=True (the unused parameters found by a walk of
+    the autograd graph every step): {"ignore": ms, "search": ms}. Their
+    launches are not counted in the phase's."""
+    from torch.nn.parallel import DistributedDataParallel
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state
+    model = build_model(args)
+    model.load_state_dict(weights, strict=True)
+    other = create_train_state(model.cuda(), args, steps_per_epoch=2693)
+    other.ddp = DistributedDataParallel(other.model, device_ids=[0], broadcast_buffers=False,
+                                        find_unused_parameters=True)
+    other, _ = step(other, shard)
+    times = {"ignore": [], "search": []}
+    for _ in range(DDP_STEPS):
+        for key, st in (("ignore", state), ("search", other)):
+            t0 = time.perf_counter()
+            step(st, shard)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    del other, model
+    torch.cuda.empty_cache()
+    return times
+
+
+def no_dropout(model):
+    """The mViT's dropout off: each rank draws its own masks, one process
+    others, so the float32 comparison of phase 9b runs without it (as
+    tests/test_torch_port_ddp.py does)."""
+    for m in model.modules():
+        if hasattr(m, "dropout"):
+            m.dropout = 0.0
+    return model
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp(state_dict, work, synthetic_ms):
+    """Phase 9b: two gloo ranks on the one card (NCCL refuses two ranks on
+    one device, so the backend is named, not fallen back to), the flagship
+    at a global batch of 16; their float32 step against one process's on
+    the whole batch. Returns the launches of both ranks' bf16 steps."""
+    import torch.multiprocessing as mp
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state
+
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save(state_dict, work / "weights.pt")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(ddp_rank, args=(free_port(), str(work / "weights.pt"), str(work)),
+             nprocs=DDP_RANKS, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(DDP_RANKS)]
+    launches = dict.fromkeys(STEP_LAUNCHES, 0)
+    for r, out in enumerate(ranks):
+        bf16 = out["bf16"]
+        for i, counts in enumerate(bf16["per_step"]):
+            check(counts == STEP_LAUNCHES, f"DDP rank {r} step {i}: launches {counts}, "
+                  f"expected {STEP_LAUNCHES}")
+        check(all(np.isfinite(bf16["losses"])), f"DDP rank {r}: loss not finite")
+        for k, v in bf16["launches"].items():
+            launches[k] += v
+    check(ranks[0]["bf16"]["losses"] == ranks[1]["bf16"]["losses"],
+          "DDP: the ranks' logged losses differ")
+    median = statistics.median(ranks[0]["bf16"]["ms"])
+    print(f"DDP: {DDP_RANKS} gloo ranks on one card, global batch {TRAIN_BATCH} "
+          f"({TRAIN_BATCH // DDP_RANKS} a rank) of {TRAIN_HW[0]}x{TRAIN_HW[1]}, bf16 autocast, "
+          f"{DDP_STEPS} steps after {DDP_WARMUP}: rank 0 median {median:.3f} ms (all: "
+          + ", ".join(f"{v:.3f}" for v in ranks[0]["bf16"]["ms"])
+          + f"), rank 1 median {statistics.median(ranks[1]['bf16']['ms']):.3f} ms, against "
+          f"phase 5's one-process step of 16 {synthetic_ms:.3f} ms; losses "
+          f"{[round(v, 6) for v in ranks[0]['bf16']['losses']]}; peak a rank "
+          f"{[out['bf16']['peak'] for out in ranks]} bytes; launches a rank "
+          f"{[out['bf16']['launches'] for out in ranks]}; spawn and run {spawn_s:.1f} s")
+    search = ranks[0]["bf16"]["search_ms"]
+    print(f"DDP unused-parameter search, rank 0, {DDP_STEPS} interleaved pairs of bf16 steps: "
+          f"median {statistics.median(search['ignore']):.3f} ms with the unused BatchNorm "
+          f"left out of DDP (all: {', '.join(f'{v:.3f}' for v in search['ignore'])}), "
+          f"{statistics.median(search['search']):.3f} ms with find_unused_parameters=True "
+          f"(all: {', '.join(f'{v:.3f}' for v in search['search'])})")
+
+    args = flagship_args(compute_dtype="float32")
+    model = no_dropout(build_model(args))
+    model.load_state_dict(state_dict, strict=True)
+    state = create_train_state(model.cuda(), args, steps_per_epoch=2693)
+    want, want_grads = watched_step(state, args,
+                                    {k: v.cuda() for k, v in ddp_batch().items()})
+    got, got_grads = ranks[0]["f32"]
+    check(ranks[1]["f32"][0] == got, "DDP float32: the ranks' metrics differ")
+    largest = max(g.abs().max().item() for g in want_grads.values())
+    err = max(((got_grads[k] - g).abs().max().item() / largest, k)
+              for k, g in want_grads.items())
+    rank_gap = max((ranks[1]["f32"][1][k] - g).abs().max().item() for k, g in got_grads.items())
+    print(f"DDP float32 step, 2 ranks against one process on the 16 images: loss "
+          f"{got['loss']:.7f} against {want['loss']:.7f}, silog {got['silog']:.7f} against "
+          f"{want['silog']:.7f}, chamfer {got['chamfer']:.7e} against {want['chamfer']:.7e} "
+          f"(rtol 2e-4); largest gradient error {err[0]:.3e} of the largest value ({err[1]}; "
+          f"tolerance {DDP_GRAD_TOL}); the ranks' gradients differ by {rank_gap:.3e}")
+    for k in ("loss", "silog", "chamfer"):
+        check(abs(got[k] - want[k]) <= 2e-4 * abs(want[k]), f"DDP float32 {k}")
+    check(err[0] <= DDP_GRAD_TOL, f"DDP float32 gradients {err}")
+    check(rank_gap == 0.0, "DDP float32: the ranks' gradients differ")
+    del state, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def nccl_main_train(root):
+    """Phase 9b': main_train under --distributed in a torchrun-style
+    environment of one rank: NCCL's process group and the DDP wrapper on the
+    card, 2 steps and a validation of the phase-8 eval split. Returns the
+    launches."""
+    from torch.nn.parallel import DistributedDataParallel
+    from mde_tpu_torch.config import TrainArgParser, parse_cli
+    from mde_tpu_torch.train import driver
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    seen = {}
+    real = driver.make_train_step
+
+    def make_train_step(*a, **k):
+        seen["backend"] = torch.distributed.get_backend()
+        return real(*a, **k)
+
+    driver.make_train_step = make_train_step
+    try:
+        args = parse_cli(TrainArgParser(), cli_argv(root) + [
+            "--distributed", "--root", str(root / "runs_nccl")])
+        reset_counts()
+        t0 = time.perf_counter()
+        state = driver.main_train(args, max_steps=2, interactive=False)
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        driver.make_train_step = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    expected = {"bins_head_fwd": CLI_EVAL_FRAMES, "bins_head_bwd": 0, "bins_head_tc_fwd": 2,
+                "bins_head_tc_bwd": 4, "chamfer": 2}
+    print(f"DDP through main_train: --distributed, WORLD_SIZE 1, backend {seen.get('backend')}, "
+          f"wrapper {type(state.ddp).__name__}: {state.step} steps and a validation of "
+          f"{CLI_EVAL_FRAMES} frames in {run_s:.2f} s; launches {counts}, expected {expected}")
+    check(seen.get("backend") == "nccl" and isinstance(state.ddp, DistributedDataParallel),
+          "main_train --distributed did not run NCCL and DDP")
+    check(not torch.distributed.is_initialized(), "main_train left its process group")
+    check(state.step == 2 and counts == expected, f"DDP main_train launches {counts}")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def remat(state_dict, gen, profile_dir, synthetic_ms, synthetic_peak):
+    """Phase 9c: the phase-5 step with --remat encoder: one step from the
+    same weights and batch as without it (the same loss to bf16 rounding,
+    BN buffers moved once), then 2 + 8 timed steps; returns their launches."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state, make_train_step
+
+    batch = train_batch(flagship_args(), torch.Generator().manual_seed(SEED + 4), TRAIN_BATCH,
+                        TRAIN_HW)
+    first = {}
+    for policy in ("none", "encoder"):
+        args = flagship_args(remat=policy)
+        model = build_model(args)
+        model.load_state_dict(state_dict, strict=True)
+        state = create_train_state(model.cuda(), args, steps_per_epoch=2693)
+        _, m = make_train_step(args)(state, batch)
+        torch.cuda.synchronize()
+        first[policy] = (m["loss"].item(), {k: v.clone() for k, v in model.named_buffers()})
+        del state, model
+        torch.cuda.empty_cache()
+    (loss, bufs), (r_loss, r_bufs) = first["none"], first["encoder"]
+    stat_err = max(((r_bufs[k] - v).abs().max() / v.abs().max().clamp(min=1e-30)).item()
+                   for k, v in bufs.items() if "running_" in k)
+    print(f"train remat: first step from the phase-5 weights, loss {r_loss:.7f} against "
+          f"{loss:.7f} without remat (tolerance {REMAT_LOSS_TOL} relative); BN running stats "
+          f"largest difference {stat_err:.3e} of the largest value; num_batches_tracked "
+          f"{sorted({int(v) for k, v in r_bufs.items() if 'num_batches' in k})}")
+    check(abs(r_loss - loss) <= REMAT_LOSS_TOL * abs(loss), "remat changed the loss")
+    check(all(int(v) == 1 for k, v in r_bufs.items() if "num_batches" in k),
+          "remat moved the BN buffers more than once")
+    check(stat_err <= 1e-3, f"remat BN running stats {stat_err:.3e}")
+
+    args = flagship_args(remat="encoder")
+    model = build_model(args)
+    model.load_state_dict(state_dict, strict=True)
+    counts, ms, peak = train(args, model.cuda(), gen, profile_dir, "train remat")
+    print(f"train remat against phase 5: median {ms:.3f} against {synthetic_ms:.3f} ms "
+          f"({100 * (ms / synthetic_ms - 1):+.1f}%), max_memory_allocated {peak} against "
+          f"{synthetic_peak} bytes ({100 * (peak / synthetic_peak - 1):+.1f}%)")
+    check(peak < synthetic_peak, "remat did not lower the peak")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def pretrained_backbone(gen, work):
+    """Phase 9d: a seeded B1 backbone .npz (flax-tree layout) into cue
+    configuration A's 73-channel stem on the card."""
+    from mde_tpu_torch.checkpoint import backbone_trees, save_backbone_npz
+    from mde_tpu_torch.models.efficientnet import EfficientNetEncoder
+    from mde_tpu_torch.train.driver import apply_pretrained_backbone
+
+    encoder = EfficientNetEncoder("efficientnet-b1")
+    encoder.load_state_dict(seeded_state_dict(encoder, gen), strict=True)
+    want = encoder.state_dict()
+    path = work / "backbone_b1.npz"
+    save_backbone_npz(*backbone_trees(want, "efficientnet-b1"), str(path))
+    args = flagship_args(**CUE_CONFIGS["A"], pretrained_backbone=str(path))
+    model = seeded_model(args, gen)
+    stem = model.encoder.original_model.conv_stem.weight.detach().cpu().clone()
+    apply_pretrained_backbone(model, args)
+    got = {k: v.cpu() for k, v in model.encoder.original_model.state_dict().items()}
+    check(torch.equal(got["conv_stem.weight"][:, :3], want["conv_stem.weight"]),
+          "pretrained backbone: the stem's RGB slice is not the file's")
+    check(torch.equal(got["conv_stem.weight"][:, 3:], stem[:, 3:]),
+          "pretrained backbone: the stem's cue slice moved")
+    rest = [k for k in want if k != "conv_stem.weight" and "num_batches" not in k]
+    check(all(torch.equal(got[k], want[k]) for k in rest),
+          "pretrained backbone: a weight or BN stat is not the file's")
+    print(f"pretrained backbone: {path.name} ({path.stat().st_size} bytes) into configuration "
+          f"A's stem {tuple(stem.shape)}: RGB slice equal to the file's, {stem.shape[1] - 3} cue "
+          f"channels untouched, {len(rest)} other tensors (weights and BN stats) the file's")
+    del model
 
 
 def main(argv):
@@ -1421,6 +1888,7 @@ def main(argv):
     check_chunked_head(bins_head, gen)
     torch.cuda.empty_cache()
     cham = check_chamfer(chamfer, gen)
+    wide = check_chamfer_wide(chamfer)
     cublas_yardstick(gen)
     torch.cuda.empty_cache()
 
@@ -1474,8 +1942,19 @@ def main(argv):
     step_against_plain(cue_b, gen, torch.bfloat16, "B")
     torch.cuda.empty_cache()
     add(no_adabins(gen))
-    for counts in train_cli(args.profile, train_ms):
-        add(counts)
+    build_dir = REPO / ".build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root = Path(tmp)
+        for counts in train_cli(root, args.profile, train_ms):
+            add(counts)
+        add(eval_cli(root, gen))
+        add(ddp(state_dict, root / "ddp", train_ms))
+        add(nccl_main_train(root))
+        add(remat(state_dict, gen, args.profile, train_ms, train_peak))
+        pretrained_backbone(gen, root)
+    print(f"chamfer_wide_kernel ({WIDE_BINS} bins, on no main path: every params file has 256 "
+          f"bins): " + json.dumps(wide))
     print(f"launches over the main paths (the float32 head backward from the step "
           f"checks): {launches}")
     check(all(launches.values()), f"a kernel was launched no time: {launches}")

@@ -22,16 +22,21 @@ layout module for module so each port can be held against its counterpart:
   checkpoint.py  training checkpoints (.pt, the reference layout), flax trees
              / reference .pt files -> port state_dicts
   train/     optimizer (AdamW + OneCycle + clip), train state, train step,
-             eval step and validate, the driver (main_train) and the CLI
-             (python -m mde_tpu_torch.train)
+             eval step and validate, the driver (main_train, with DDP and
+             --pretrained_backbone) and the CLI (python -m mde_tpu_torch.train)
+  parallel/  data parallelism: the process group, the in-model collectives
+             (global-batch BatchNorm and SILog), shard_batch_size
   utils/     host-side helpers (colorize, the experiment directory, the
              scalar logger, running averages)
   infer.py   InferenceHelper: the flip-TTA serving forward
+  evaluate.py  official-split evaluation (python -m mde_tpu_torch.evaluate)
 
 Slices ported so far: the serving forward, the training step, the cue
 configurations (AdaBins and noAdaBins, cues at the input or before the mViT)
-through the training step, the eval step and `validate`, and training from
-files through the CLI. This package imports torch and never jax, flax,
+through the training step, the eval step and `validate`, training from files
+through the CLI, evaluation, data-parallel training, `--remat encoder` and
+`--pretrained_backbone`. The root script `orbax_to_pt.py` (which needs JAX)
+turns the JAX package's orbax checkpoints into the port's `.pt`. This package imports torch and never jax, flax,
 mde_tpu or PIL.
 """
 

@@ -13,6 +13,16 @@ as numpy arrays, into a port state_dict under the reference's torch names; it
 is the inverse of `mde_tpu.checkpoint.convert_reference_checkpoint` and
 `convert_backbone_statedict`. `load_reference_checkpoint` loads a reference
 AdaBins .pt file into a port model.
+
+Backbone files for `--pretrained_backbone` (`mde_tpu/checkpoint.py:248-277`)
+keep the flax-tree layout, so one .npz serves both packages:
+`save_backbone_npz` / `load_backbone_npz` flatten and rebuild the encoder's
+(params, batch_stats) trees; `backbone_trees` makes them from a
+gen-efficientnet state_dict (the port's copy of `convert_backbone_statedict`)
+and `backbone_state_dict` turns them back into the encoder's state_dict.
+
+The JAX package's orbax checkpoints are read by the root script
+`orbax_to_pt.py`, which needs JAX and writes this module's layout.
 """
 
 import os
@@ -122,6 +132,90 @@ def _encoder(wr, prefix, params, stats, arch):
                     wr.conv(dst + name, sub)
     wr.conv(prefix + "conv_head", params["conv_head"])
     wr.bn(prefix + "bn2", params["bn2"], stats["bn2"])
+
+
+def backbone_state_dict(params: dict, stats: dict, arch: str) -> OrderedDict:
+    """The encoder's flax (params, batch_stats) trees -> the state_dict of
+    `EfficientNetEncoder` (gen-efficientnet names, no prefix)."""
+    wr = _Writer()
+    _encoder(wr, "", params, stats, arch)
+    return wr.sd
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def backbone_trees(sd: dict, arch: str):
+    """gen-efficientnet tf_efficientnet_{b1,b5}_ap state_dict (bare, or under
+    `encoder.original_model.`) -> the encoder's flax (params, batch_stats)
+    trees of numpy arrays; the port's copy of
+    `mde_tpu.checkpoint.convert_backbone_statedict`."""
+    prefix = "encoder.original_model."
+    sd = {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
+
+    def conv(name):
+        p = {"kernel": _np(sd[name + ".weight"]).transpose(2, 3, 1, 0)}
+        if name + ".bias" in sd:
+            p["bias"] = _np(sd[name + ".bias"])
+        return p
+
+    def bn(name):
+        return ({"scale": _np(sd[name + ".weight"]), "bias": _np(sd[name + ".bias"])},
+                {"mean": _np(sd[name + ".running_mean"]), "var": _np(sd[name + ".running_var"])})
+
+    _, depth = EFFICIENTNET_CONFIGS[arch]
+    params, stats = {"conv_stem": conv("conv_stem")}, {}
+    params["bn1"], stats["bn1"] = bn("bn1")
+    for stage_i, (expand, _k, _s, _c, base_r) in enumerate(_B0_STAGES):
+        for rep in range(round_repeats(base_r, depth)):
+            src, p, st = f"blocks.{stage_i}.{rep}", {}, {}
+            names = (("conv_dw", "bn1", "se", "conv_pw", "bn2") if expand == 1 else
+                     ("conv_pw", "bn1", "conv_dw", "bn2", "se", "conv_pwl", "bn3"))
+            for name in names:
+                if name == "se":
+                    p["se"] = {"conv_reduce": conv(src + ".se.conv_reduce"),
+                               "conv_expand": conv(src + ".se.conv_expand")}
+                elif name.startswith("bn"):
+                    p[name], st[name] = bn(f"{src}.{name}")
+                else:
+                    p[name] = conv(f"{src}.{name}")
+            params[f"blocks_{stage_i}_{rep}"], stats[f"blocks_{stage_i}_{rep}"] = p, st
+    params["conv_head"] = conv("conv_head")
+    params["bn2"], stats["bn2"] = bn("bn2")
+    return params, stats
+
+
+def save_backbone_npz(params: dict, stats: dict, out_path: str) -> None:
+    """Flatten backbone trees into an .npz for --pretrained_backbone
+    (`mde_tpu/checkpoint.py:248-262`: `params:a/b/c` and `stats:a/b/c` keys)."""
+    flat = {}
+
+    def walk(tree, prefix, bucket):
+        for k, v in tree.items():
+            key = f"{prefix}{k}"
+            if isinstance(v, dict):
+                walk(v, key + "/", bucket)
+            else:
+                flat[f"{bucket}:{key}"] = np.asarray(v)
+
+    walk(params, "", "params")
+    walk(stats, "", "stats")
+    np.savez_compressed(out_path, **flat)
+
+
+def load_backbone_npz(path: str):
+    """Inverse of save_backbone_npz: .npz -> (params, stats) nested trees."""
+    params, stats = {}, {}
+    with np.load(path) as data:
+        for key in data.files:
+            bucket, rest = key.split(":", 1)
+            node = params if bucket == "params" else stats
+            parts = rest.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return params, stats
 
 
 _CUE_MLPS = ("semantics_areas_fc", "semantics_absolute_sizes_fc", "instance_areas_fc",

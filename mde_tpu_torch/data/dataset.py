@@ -15,7 +15,13 @@ What differs from the JAX loader:
   for the numpy path; a library that fails to build raises instead of
   dropping back to numpy.
 * The loader takes `rank` and `world_size` as arguments (default 0 of 1)
-  where JAX asks `jax.process_count()`.
+  where JAX asks `jax.process_count()`. With several ranks the epoch's
+  permutation is cut to a multiple of the world size, each rank takes its
+  strided share, and every rank counts the same batches (torch's
+  DistributedSampler with drop_last). The JAX loader counts the whole
+  split's batches on every process (`mde_tpu/data/dataset.py:311-336`), so a
+  process whose share runs out first would be asked for batches it has not
+  got; with DDP every rank must take every step.
 """
 
 import os
@@ -317,14 +323,17 @@ class DepthDataLoader:
 
     def __len__(self):
         n = len(self.dataset)
+        if self.world_size > 1 and self.mode == "train":
+            n //= self.world_size
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _order(self, rank: int = 0, world_size: int = 1):
         """Epoch ordering; with several ranks each takes a strided slice of
-        the shared permutation (the DistributedSampler equivalent: every rank
-        derives the same permutation from the shared seed)."""
+        the shared permutation cut to a multiple of them (the
+        DistributedSampler equivalent: every rank derives the same
+        permutation from the shared seed)."""
         n = len(self.dataset)
         if not self.shuffle:
             order = np.arange(n)
@@ -333,7 +342,7 @@ class DepthDataLoader:
                 np.random.SeedSequence([self.seed, self._epoch, 0xD5]))
             order = rng.permutation(n)
         if world_size > 1 and self.mode == "train":
-            order = order[rank::world_size]
+            order = order[:n - n % world_size][rank::world_size]
         return order
 
     def _use_native(self) -> bool:

@@ -9,6 +9,12 @@ variance as flax does (models/norm.py). There is no stochastic depth: its
 rate is 0, the JAX default (`mde_tpu/models/efficientnet.py:367-370`), and a
 rate above 0 is not ported (ROADMAP queue 1, item 2).
 
+`remat=True` (`--remat encoder`) checkpoints each MBConv block, the blocks
+JAX wraps in `nn.remat` (`mde_tpu/models/efficientnet.py:390-392`): in a
+training forward that records gradients a block keeps only its input, and
+its forward runs again in the backward, under `norm.recomputation()` so
+that its BatchNorms update their running stats once.
+
 The encoder returns the feature-list contract the decoder relies on:
     features[0]  input
     features[1]  conv_stem out          features[2] stem BN out
@@ -17,13 +23,15 @@ The encoder returns the feature-list contract the decoder relies on:
     features[11] conv_head out          features[12] head BN  features[13] head act
 """
 
+import contextlib
 import math
 
 import torch
+import torch.utils.checkpoint
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .norm import BatchNorm2d
+from .norm import BatchNorm2d, recomputation
 
 # B0 stage table: (expand_ratio, kernel, stride, base_channels, base_repeats)
 _B0_STAGES = (
@@ -80,6 +88,11 @@ class Conv2dSame(nn.Conv2d):
             x = F.pad(x, (left, right, top, bottom))
         return F.conv2d(x, self.weight, self.bias, self.stride, 0,
                         self.dilation, self.groups)
+
+
+def _recompute_contexts():
+    """checkpoint's (forward, recomputation) contexts."""
+    return contextlib.nullcontext(), recomputation()
 
 
 def _bn(chs):
@@ -148,8 +161,10 @@ class InvertedResidualBlock(nn.Module):
 class EfficientNetEncoder(nn.Module):
     """EfficientNet trunk returning the full intermediate-feature list."""
 
-    def __init__(self, arch: str = "efficientnet-b1", in_chs: int = 3):
+    def __init__(self, arch: str = "efficientnet-b1", in_chs: int = 3, remat: bool = False):
         super().__init__()
+        self.arch = arch
+        self.remat = remat
         width, depth = EFFICIENTNET_CONFIGS[arch]
         stem_chs = round_channels(32, width)
         head_chs = round_channels(1280, width)
@@ -184,8 +199,12 @@ class EfficientNetEncoder(nn.Module):
         features.append(y)
         y = F.silu(y)
         features.append(y)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for stage in self.blocks:
-            y = stage(y)
+            for block in stage:
+                y = (torch.utils.checkpoint.checkpoint(
+                    block, y, use_reentrant=False, context_fn=_recompute_contexts)
+                    if remat else block(y))
             features.append(y)
         y = self.conv_head(y)
         features.append(y)

@@ -26,7 +26,8 @@ runs the plain version for CPU tensors; otherwise the head runs as the
 reference writes it (conv, softmax over bins, centers sum). The fused head is
 differentiable (its backward is a CUDA kernel too), so training takes the
 same switch. `forward(..., generator)` draws the mViT dropout masks in
-training mode from `generator`.
+training mode from `generator`. `remat="encoder"` checkpoints the encoder's
+blocks (models/efficientnet.py).
 
 Outputs: (bin_edges (N, n_bins + 1), or None for noAdaBins;
 pred (N, 1, H/2, W/2)).
@@ -89,9 +90,9 @@ def CueMLP(in_channels: int) -> nn.Sequential:
 class Encoder(nn.Module):
     """Holder giving the reference's `encoder.original_model.*` names."""
 
-    def __init__(self, arch: str, in_chs: int = 3):
+    def __init__(self, arch: str, in_chs: int = 3, remat: bool = False):
         super().__init__()
-        self.original_model = EfficientNetEncoder(arch, in_chs)
+        self.original_model = EfficientNetEncoder(arch, in_chs, remat)
 
     def forward(self, x):
         return self.original_model(x)
@@ -102,7 +103,7 @@ class UnetAdaptiveBins(nn.Module):
                  norm: str = "linear", encoder_name: str = "efficientnet-b5",
                  semantics_mode=None, instance_segmentation_mode=None,
                  insertion_point: str = "before-attn", image: str = "rgb",
-                 fused_head: bool = False):
+                 fused_head: bool = False, remat: str = "none"):
         super().__init__()
         self.n_bins = n_bins
         self.min_val = min_val
@@ -143,7 +144,7 @@ class UnetAdaptiveBins(nn.Module):
 
         arch = "efficientnet-b5" if "efficientnet-b5" in encoder_name else "efficientnet-b1"
         stage_chs, head_chs = stage_channels(arch)
-        self.encoder = Encoder(arch, in_chs)
+        self.encoder = Encoder(arch, in_chs, remat=remat == "encoder")
         self.decoder = DecoderBN(num_features=head_chs, num_classes=128,
                                  skip_chs=(stage_chs[0], stage_chs[1],
                                            stage_chs[2], stage_chs[4]),
@@ -232,4 +233,5 @@ def build_model(args, n_bins=None) -> UnetAdaptiveBins:
         insertion_point=args.insertion_point,
         image=args.image,
         fused_head=bool(getattr(args, "use_fused_head", False)),
+        remat=getattr(args, "remat", "none") or "none",
     )

@@ -2,7 +2,10 @@
 NCHW.
 
 * SILog keeps the dense map and weights it by the mask, as the JAX package
-  does, instead of gathering the masked pixels.
+  does, instead of gathering the masked pixels. With several ranks
+  (`parallel.sync_group()`) its count and sums are summed over the ranks
+  before the square root, as the JAX step's loss is one variance over the
+  valid pixels of the global batch.
 * `bins_chamfer_loss` is the chunked exact 1-D chamfer between bin centres
   and valid GT depths. It is the plain version of the chamfer kernel
   (kernels/chamfer.py) and differentiates through torch's autograd.
@@ -10,18 +13,21 @@ NCHW.
 
 import torch
 
+from ..parallel import all_reduce_sum
 from .bins import bin_centers
 from .resize import resize_bilinear_align_corners
 
 
 def silog_loss(pred: torch.Tensor, target: torch.Tensor, mask=None,
-               interpolate: bool = True) -> torch.Tensor:
+               interpolate: bool = True, global_batch: bool = False) -> torch.Tensor:
     """Scale-invariant log loss, variance form (reference loss.py:12-25).
 
     Dg = Var_unbiased(g) + 0.15 * mean(g)^2 with g = log(pred) - log(target)
     over masked pixels; loss = 10 * sqrt(Dg). pred and target are
     (N, 1, H, W); with `interpolate` pred is first resized to target's size
-    (bilinear, align_corners=True).
+    (bilinear, align_corners=True). `global_batch` sums over the ranks of
+    `parallel.sync_group()`, when there is one (differentiably: each rank
+    gets the global loss).
     """
     if interpolate:
         pred = resize_bilinear_align_corners(pred, target.shape[-2:])
@@ -31,9 +37,10 @@ def silog_loss(pred: torch.Tensor, target: torch.Tensor, mask=None,
     else:
         m = mask.float()
         g = torch.where(mask, g, torch.zeros_like(g))
-    n = m.sum()
-    mean = (g * m).sum() / n
-    var = (m * (g - mean) ** 2).sum() / torch.clamp(n - 1.0, min=1.0)
+    reduce = all_reduce_sum if global_batch else (lambda t: t)
+    n, total = reduce(torch.stack([m.sum(), (g * m).sum()]))
+    mean = total / n
+    var = reduce((m * (g - mean) ** 2).sum()) / torch.clamp(n - 1.0, min=1.0)
     dg = var + 0.15 * mean ** 2
     return 10.0 * torch.sqrt(dg)
 

@@ -5,14 +5,14 @@
 
 The params file parses as `train.py` parses it; the port adds `--device`
 (cuda by default; `--device cpu` trains on the CPU). A missing or failing
-card is an error, not a run on the CPU.
+card is an error, not a run on the CPU. Data-parallel over N cards:
+
+    torchrun --nproc_per_node N -m mde_tpu_torch.train params/... --distributed
 """
 
-import os
 import sys
 
 from ..config import TrainArgParser, parse_cli
-from ..utils import setup_exp_dir
 from .driver import main_train
 
 
@@ -22,10 +22,7 @@ def main(argv=None):
                     "recommended for reproducibility",
         fromfile_prefix_chars="@", conflict_handler="resolve")
     args = parse_cli(parser, argv, mode="train")
-    if args.root != "." and not os.path.isdir(args.root):
-        os.makedirs(args.root)
-    args.exp_dir = setup_exp_dir(args.root, args.name, interactive=sys.stdin.isatty())
-    main_train(args)
+    main_train(args, interactive=sys.stdin.isatty())
 
 
 if __name__ == "__main__":

@@ -16,10 +16,24 @@ start. The scalars go to `events.jsonl` in the experiment directory.
 from that step: at its epoch, past the batches of that epoch already taken,
 with the OneCycle schedule where it stopped.
 
-Not in this slice: the 500-step qualitative figures (`utils/graphs.py`),
-`--pretrained_backbone`, DDP (`--distributed` under torchrun raises; without
-it the run is one process, as the JAX package runs without a coordinator),
-and `--steps_per_dispatch` / `--mesh_shape`, which parse and change nothing.
+`--pretrained_backbone FILE.npz` (a flax-layout backbone file, as
+`mde_tpu.checkpoint.save_backbone_npz` writes it) loads the encoder's weights
+and BN stats into the fresh model, as `mde_tpu/train/driver.py:41-64` does:
+a stem widened by input cues keeps the file's RGB slice and its own cue
+slice; with `--image none` the stem stays random.
+
+Data parallelism (`--distributed` under `torchrun --nproc_per_node N -m
+mde_tpu_torch.train ...`, `parallel/`): each rank takes its share of the
+global batch (`shard_batch_size`, the loader's `(rank, world_size)`), the
+model runs under DistributedDataParallel (`train/state.py::wrap_ddp`) with
+BatchNorm and SILog over the global batch, so the step is the JAX package's
+global step; rank 0 names the run (its id and experiment directory go to
+every rank), writes the scalars and the checkpoints, and validates (eval
+mode has no collective, so its metrics are one process's).
+
+Not in this slice: the 500-step qualitative figures (`utils/graphs.py`), and
+`--steps_per_dispatch` / `--mesh_shape` (tensor parallelism), which parse and
+change nothing.
 """
 
 import glob
@@ -30,14 +44,17 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from ..checkpoint import load_checkpoint, save_checkpoint
+from ..checkpoint import (backbone_state_dict, load_backbone_npz, load_checkpoint,
+                          save_checkpoint)
 from ..cues import InstanceEmbedder, SemanticsEmbedder
 from ..data import DepthDataLoader, DevicePrefetcher
 from ..data.prefetch import ARRAY_KEYS
 from ..models import build_model
+from ..parallel import (broadcast_object, destroy_distributed, maybe_init_distributed,
+                        shard_batch_size)
 from ..utils import SummaryLogger, setup_exp_dir
 from .loop import make_eval_step, make_train_step, validate
-from .state import create_train_state
+from .state import create_train_state, wrap_ddp
 
 LOG_EVERY = 5  # reference train.py:432
 
@@ -62,23 +79,61 @@ def _find_resume_checkpoint(resume: str, exp_dir):
     return candidates[-1] if candidates else None
 
 
+def apply_pretrained_backbone(model, args):
+    """Load `args.pretrained_backbone` (an .npz of the encoder's flax trees)
+    into `model`'s encoder, in place (`mde_tpu/train/driver.py:41-64`)."""
+    path = getattr(args, "pretrained_backbone", None)
+    if not path:
+        return model
+    params, stats = load_backbone_npz(path)
+    encoder = model.encoder.original_model
+    loaded = backbone_state_dict(params, stats, encoder.arch)
+    stem = encoder.conv_stem.weight
+    pretrained = loaded["conv_stem.weight"]
+    if pretrained.shape != stem.shape:
+        # input cues widen the stem: the file's RGB slice first, the cue
+        # channels keep their initialisation; with image none the stem sees
+        # cues only and stays random (reference unet_adaptive_bins.py:349-354)
+        if getattr(args, "image", "rgb") == "none":
+            loaded["conv_stem.weight"] = stem.detach().cpu()
+        else:
+            widened = stem.detach().cpu().clone()
+            k = min(widened.shape[1], pretrained.shape[1])
+            widened[:, :k] = pretrained[:, :k]
+            loaded["conv_stem.weight"] = widened
+    encoder.load_state_dict(loaded, strict=True)
+    return model
+
+
 def main_train(args, max_steps=None, interactive=True):
     """Train per the parsed args; returns the final TrainState."""
-    if getattr(args, "distributed", False) and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("multi-process training (DDP) is not ported yet "
-                                  "(ROADMAP queue 1 item 4)")
     device = torch.device(getattr(args, "device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
-    run_id = make_run_id(args)  # one process names the run (under DDP, rank 0 would)
-    args.batch_size = args.bs  # one device: the global batch
+    started = not torch.distributed.is_initialized()
+    rank, world_size = maybe_init_distributed(args)
+    started = started and torch.distributed.is_initialized()
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        return _train(args, device, rank, world_size, max_steps, interactive)
+    finally:
+        if started:
+            destroy_distributed()
+
+
+def _train(args, device, rank, world_size, max_steps, interactive):
+    lead = rank == 0
+    run_id = broadcast_object(make_run_id(args))  # rank 0 names the run
+    args.batch_size = shard_batch_size(args.bs, world_size,
+                                       getattr(args, "use_new_batching", False))
 
     torch.manual_seed(int(getattr(args, "seed", 42)))
-    model = build_model(args).to(device)
+    model = apply_pretrained_backbone(build_model(args), args).to(device)
     sem_embedder = SemanticsEmbedder(args, device) if args.use_semantics else None
     inst_embedder = InstanceEmbedder(args, device) if args.use_instance_segmentation else None
 
-    train_loader = DepthDataLoader(args, "train")
+    train_loader = DepthDataLoader(args, "train", rank=rank, world_size=world_size)
     test_loader = DepthDataLoader(args, "online_eval")
     steps_per_epoch = len(train_loader)
     if steps_per_epoch == 0:
@@ -87,8 +142,10 @@ def main_train(args, max_steps=None, interactive=True):
 
     exp_dir = getattr(args, "exp_dir", None)
     if exp_dir is None:
-        os.makedirs(args.root, exist_ok=True)
-        exp_dir = setup_exp_dir(args.root, args.name, interactive=interactive)
+        if lead:
+            os.makedirs(args.root, exist_ok=True)
+            exp_dir = setup_exp_dir(args.root, args.name, interactive=interactive)
+        exp_dir = broadcast_object(exp_dir)
         args.exp_dir = exp_dir
 
     resume = getattr(args, "resume", "")
@@ -96,26 +153,29 @@ def main_train(args, max_steps=None, interactive=True):
         ckpt_path = _find_resume_checkpoint(resume, exp_dir)
         if ckpt_path:
             state, _ = load_checkpoint(ckpt_path, state)
-            print(f"resumed from {ckpt_path} at step {state.step}")
+            if lead:
+                print(f"resumed from {ckpt_path} at step {state.step}")
     start_epoch, skip = divmod(state.step, steps_per_epoch)
+    if torch.distributed.is_initialized():  # --distributed: DDP, at any world size
+        wrap_ddp(state, [device.index] if device.type == "cuda" else None)
 
     train_step = make_train_step(args, sem_embedder, inst_embedder)
     eval_step = make_eval_step(args, sem_embedder, inst_embedder)
     experiment_name = args.name
-    logger = SummaryLogger(exp_dir)
+    logger = SummaryLogger(exp_dir) if lead else None
     best_loss = np.inf
     step = state.step
 
     def bookkeep(metrics, epoch):
-        """Logging, validation and checkpoints after one step; True when
-        max_steps is reached."""
+        """Logging, validation and checkpoints after one step (rank 0); True
+        when max_steps is reached."""
         nonlocal step, best_loss
-        if step % LOG_EVERY == 0:
+        if lead and step % LOG_EVERY == 0:
             logger.add_scalar("Train/Loss", metrics["loss"].item(), step)
             logger.add_scalar("Train/SILog", metrics["silog"].item(), step)
             logger.add_scalar("Train/ChamferLoss", metrics["chamfer"].item(), step)
         step += 1
-        if step % args.validate_every == 0 or (max_steps and step >= max_steps):
+        if lead and (step % args.validate_every == 0 or (max_steps and step >= max_steps)):
             m, val_si = validate(args, eval_step, state.model,
                                  DevicePrefetcher(test_loader, device),
                                  max_batches=getattr(args, "max_val_batches", None))
@@ -131,7 +191,8 @@ def main_train(args, max_steps=None, interactive=True):
 
     try:
         for epoch in range(start_epoch, args.epochs):
-            logger.add_scalar("Epoch", epoch, step)
+            if lead:
+                logger.add_scalar("Epoch", epoch, step)
             train_loader.set_epoch(epoch, first_batch=skip if epoch == start_epoch else 0)
             for batch in DevicePrefetcher(train_loader, device):
                 state, metrics = train_step(state, {k: v for k, v in batch.items()
@@ -139,5 +200,6 @@ def main_train(args, max_steps=None, interactive=True):
                 if bookkeep(metrics, epoch):
                     return state
     finally:
-        logger.close()
+        if lead:
+            logger.close()
     return state

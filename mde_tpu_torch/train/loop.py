@@ -24,7 +24,21 @@ and the AdamW update with the scheduled lr and beta1.
   other, and applies their mean gradient once; BN running stats thread
   through them as through K forwards.
 * The dropout masks of step s (micro-batch i) come from a generator seeded
-  with (args.seed, s, i), as the JAX step folds its rng per step.
+  with (args.seed, s, i), as the JAX step folds its rng per step; with
+  several ranks, (args.seed, s, i, rank).
+* Several ranks (`parallel/`, `TrainState.ddp`): the step gives the numbers
+  of the JAX step on the global batch (`mde_tpu/kernels/sharded.py`'s
+  semantics). BatchNorm's moments (models/norm.py) and SILog's count and
+  sums are summed over the ranks inside autograd, so every rank computes
+  the global SILog; the chamfer, a mean of per-image losses, runs on the
+  rank's shard, and DDP's gradient mean plays the part of
+  `chamfer_1d_pallas_sharded`'s pmean. The scaling is exact: the backward of
+  a sum all-reduce sums the ranks' gradients, so rank r's gradient is
+  R x its share of d(SILog)/dθ plus its shard's d(chamfer_r)/dθ, and DDP's
+  mean over the R ranks is d(SILog + w mean_r chamfer_r)/dθ, the global
+  gradient. DDP syncs on the last micro-batch of `--accum_steps` only
+  (`no_sync` before it); the logged loss, SILog and chamfer are means over
+  the ranks.
 
 The eval step runs on the device under `torch.inference_mode()`: the
 forward with no TTA, the float32 prediction resized (align corners) to the
@@ -36,6 +50,8 @@ Not ported: `make_multi_step` and `--steps_per_dispatch` (a TPU dispatch
 workaround). `train/driver.py` drives these steps from files.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -43,6 +59,7 @@ from ..kernels.chamfer import chamfer_1d
 from ..ops.losses import bins_chamfer_loss, silog_loss
 from ..ops.metrics import METRIC_NAMES, compute_errors_masked, eval_mask
 from ..ops.resize import resize_bilinear_align_corners
+from ..parallel import all_reduce_mean, world
 from ..utils.running_average import RunningAverage, RunningAverageDict
 from .state import TrainState
 
@@ -74,7 +91,8 @@ def make_loss_fn(args, sem_embedder=None, inst_embedder=None):
         cues = _embed_cues(batch, sem_embedder, inst_embedder)
         with torch.autocast(image.device.type, dtype=torch.bfloat16, enabled=bf16):
             bin_edges, pred = model(image, *cues, generator=generator)
-            l_dense = silog_loss(pred, depth, depth > min_depth, interpolate=True)
+            l_dense = silog_loss(pred, depth, depth > min_depth, interpolate=True,
+                                 global_batch=True)
             if use_chamfer and bin_edges is not None:
                 l_chamfer = chamfer_fn(bin_edges, depth)
             else:
@@ -85,8 +103,9 @@ def make_loss_fn(args, sem_embedder=None, inst_embedder=None):
     return loss_fn
 
 
-def _dropout_seed(seed: int, step: int, micro: int) -> int:
-    return int(np.random.SeedSequence([seed, step, micro]).generate_state(1)[0])
+def _dropout_seed(seed: int, step: int, micro: int, rank=None) -> int:
+    entropy = [seed, step, micro] + ([] if rank is None else [rank])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
 def make_train_step(args, sem_embedder=None, inst_embedder=None):
@@ -98,7 +117,9 @@ def make_train_step(args, sem_embedder=None, inst_embedder=None):
     seed = int(args.seed)
 
     def train_step(state: TrainState, batch):
-        model = state.model.train()
+        state.model.train()
+        net = state.ddp if state.ddp is not None else state.model
+        rank, world_size = world()
         image = batch["image"]
         generator = torch.Generator(device=image.device)
         state.optimizer.zero_grad()
@@ -109,22 +130,36 @@ def make_train_step(args, sem_embedder=None, inst_embedder=None):
         sums = torch.zeros(3, device=image.device)
         for i in range(accum):
             micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            generator.manual_seed(_dropout_seed(seed, state.step, i))
-            loss, l_dense, l_chamfer = loss_fn(model, micro, generator)
-            (loss / accum).backward()
+            generator.manual_seed(_dropout_seed(seed, state.step, i,
+                                                rank if world_size > 1 else None))
+            sync = state.ddp is None or i == accum - 1
+            with contextlib.nullcontext() if sync else state.ddp.no_sync():
+                loss, l_dense, l_chamfer = loss_fn(net, micro, generator)
+                (loss / accum).backward()
             sums += torch.stack([loss, l_dense, l_chamfer]).detach().float()
         state.optimizer.step(state.step)
         state.step += 1
-        loss, l_dense, l_chamfer = sums / accum
+        loss, l_dense, l_chamfer = all_reduce_mean(sums / accum)
         return state, {"loss": loss, "silog": l_dense, "chamfer": l_chamfer}
 
     return train_step
 
 
+def clamp_prediction(pred, min_d: float, max_d: float):
+    """The eval clamp (reference evaluate.py:60-64): into [min_d, max_d],
+    inf to max_d, NaN to min_d."""
+    pred = torch.clamp(pred, min_d, max_d)
+    pred = torch.where(torch.isinf(pred), max_d, pred)
+    return torch.where(torch.isnan(pred), min_d, pred)
+
+
 def make_eval_step(args, sem_embedder=None, inst_embedder=None):
-    """eval_step(model, batch, crop_mask) -> (silog (N,), metrics): the model
-    in eval mode on a batch on its device, `crop_mask` (H, W) boolean at the
-    GT's size. `metrics` maps each of METRIC_NAMES to an (N,) tensor."""
+    """eval_step(model, batch, crop_mask) -> (silog (N,), metrics, pred): the
+    model in eval mode on a batch on its device, `crop_mask` (H, W) boolean
+    at the GT's size. `metrics` maps each of METRIC_NAMES to an (N,) tensor;
+    `pred` is the float32 prediction at the model's resolution, clamped to
+    the eval range with inf and NaN scrubbed (what `evaluate`'s save path
+    resizes on the host), from the same forward."""
     min_d, max_d = float(args.min_depth_eval), float(args.max_depth_eval)
     min_depth = float(args.min_depth)
 
@@ -132,31 +167,33 @@ def make_eval_step(args, sem_embedder=None, inst_embedder=None):
     def eval_step(model, batch, crop_mask):
         model.eval()
         cues = _embed_cues(batch, sem_embedder, inst_embedder)
-        _, pred = model(batch["image"], *cues)
+        _, raw = model(batch["image"], *cues)
         # metric math stays float32 whatever the model computes in
         depth = batch["depth"]
-        pred = resize_bilinear_align_corners(pred.float(), depth.shape[-2:])
+        pred = resize_bilinear_align_corners(raw.float(), depth.shape[-2:])
         # per-image SILog, so the host can drop invalid-depth samples alone
         l_dense = torch.stack([
             silog_loss(p[None], d[None], (d > min_depth)[None], interpolate=False)
             for p, d in zip(pred, depth)])
-        pred = torch.clamp(pred, min_d, max_d)
-        pred = torch.where(torch.isinf(pred), max_d, pred)
-        pred = torch.where(torch.isnan(pred), min_d, pred)
+        pred = clamp_prediction(pred, min_d, max_d)
 
         gt, pr = depth[:, 0], pred[:, 0]
         valid = (gt > min_d) & (gt < max_d) & crop_mask[None]
-        return l_dense, compute_errors_masked(gt, pr, valid, dim=(-2, -1))
+        metrics = compute_errors_masked(gt, pr, valid, dim=(-2, -1))
+        return l_dense, metrics, clamp_prediction(raw.float(), min_d, max_d)
 
     return eval_step
 
 
-def validate(args, eval_step, model, test_loader, max_batches=None):
+def validate(args, eval_step, model, test_loader, max_batches=None, on_batch=None):
     """Online validation over any iterable of batch dicts (host or device
     tensors, moved to the model's device); returns (metric dict, the
     RunningAverage of the per-sample val SILog). Samples whose
     `has_valid_depth` is false are skipped one by one (reference
-    train.py:516-518); the crop follows each batch's GT size."""
+    train.py:516-518); the crop follows each batch's GT size. With
+    `on_batch`, every batch goes through the step, with or without a valid
+    sample, and `on_batch(batch, pred)` gets it with the step's prediction
+    (evaluate.py's count of frames without a GT and its save path)."""
     device = next(model.parameters()).device
     val_si = RunningAverage()
     metrics = RunningAverageDict()
@@ -167,7 +204,7 @@ def validate(args, eval_step, model, test_loader, max_batches=None):
         bs = batch["depth"].shape[0]
         valid = (torch.as_tensor(batch["has_valid_depth"]).reshape(-1).bool().tolist()
                  if "has_valid_depth" in batch else [True] * bs)
-        if not any(valid):
+        if not (any(valid) or on_batch):
             continue
         gt_hw = tuple(batch["depth"].shape[-2:])
         if gt_hw not in crops:
@@ -175,7 +212,9 @@ def validate(args, eval_step, model, test_loader, max_batches=None):
                 gt_hw, args.dataset, args.garg_crop, args.eigen_crop)).to(device)
         arrays = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
                   if k in _EVAL_KEYS}
-        si, m = eval_step(model, arrays, crops[gt_hw])
+        si, m, pred = eval_step(model, arrays, crops[gt_hw])
+        if on_batch is not None:
+            on_batch(batch, pred)
         values = torch.stack([si] + [m[k] for k in METRIC_NAMES]).cpu().numpy()
         for j in range(bs):
             if not valid[j]:

@@ -1,7 +1,10 @@
 """Train state, port of `mde_tpu/train/state.py`: the model (its parameters
-and its BatchNorm running stats), the optimizer and the update count."""
+and its BatchNorm running stats), the optimizer and the update count; with
+several ranks, also the model's DistributedDataParallel wrapper, through
+which the step runs its forward (`wrap_ddp`)."""
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -13,9 +16,29 @@ class TrainState:
     model: torch.nn.Module
     optimizer: OneCycleAdamW
     step: int = 0
+    ddp: Optional[torch.nn.Module] = None
 
 
 def create_train_state(model: torch.nn.Module, args, steps_per_epoch: int) -> TrainState:
     """Wrap a built model (weights already loaded or initialised) with the
     reference optimizer recipe (train/optim.py)."""
     return TrainState(model=model, optimizer=OneCycleAdamW(model, args, steps_per_epoch))
+
+
+def wrap_ddp(state: TrainState, device_ids=None) -> TrainState:
+    """Wrap `state.model` in DistributedDataParallel on the default process
+    group. Buffers are not broadcast: BatchNorm computes the global batch's
+    moments on every rank (models/norm.py), so they stay equal. The
+    encoder's last BatchNorm feeds no output that the decoder reads (it
+    takes features 4, 5, 6, 8 and 11 of the encoder's list), so DDP leaves
+    its two parameters out, and need not walk the autograd graph each step
+    to find them; their gradient stays None on every rank and the optimizer
+    gives them a zero one, as optax does. Any other parameter the loss
+    missed would make DDP raise at the next step."""
+    from torch.nn.parallel import DistributedDataParallel
+    unused = [f"{name}.{p}" for name, module in state.model.named_modules()
+              if name.endswith("encoder.original_model.bn2") for p in ("weight", "bias")]
+    DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(state.model, unused)
+    state.ddp = DistributedDataParallel(state.model, device_ids=device_ids,
+                                        broadcast_buffers=False)
+    return state

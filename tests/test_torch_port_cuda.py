@@ -534,12 +534,13 @@ def test_eval_step_launches_the_f32_head_once(cuda):
     crop = torch.ones((480, 640), dtype=torch.bool, device=cuda)
     counts = (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
               bins_head.TC_BWD_LAUNCHES, chamfer.LAUNCHES)
-    si, metrics = step(model, batch, crop)
+    si, metrics, pred = step(model, batch, crop)
     torch.cuda.synchronize()
     after = (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
              bins_head.TC_BWD_LAUNCHES, chamfer.LAUNCHES)
     assert tuple(a - b for a, b in zip(after, counts)) == (1, 0, 0, 0, 0)
     assert torch.isfinite(si).all() and all(torch.isfinite(v).all() for v in metrics.values())
+    assert pred.shape == (1, 1, 160, 208) and torch.isfinite(pred).all()
 
 
 def _nyu_tree(root, n_train, n_eval, eval_hw=(480, 640)):
@@ -659,3 +660,83 @@ def test_driver_launches_the_kernels(cuda, tmp_path):
     torch.cuda.synchronize()
     assert state.step == 3
     assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 1, 2, 1)
+
+
+@pytest.mark.cuda
+def test_evaluate_cli_launches_the_f32_head_once_a_frame(cuda, tmp_path):
+    """python -m mde_tpu_torch.evaluate's `main` on params/args_test_nyu.txt
+    with a seeded B1 checkpoint, 2 eval frames of 320x416 and --save_dir:
+    one float32 head forward a frame (the metrics and the saved PNG come
+    from the same forward), no other kernel, finite metrics, one 16-bit PNG
+    a frame under the JAX package's names."""
+    import os
+
+    from mde_tpu_torch.data.decode import read_png
+    from mde_tpu_torch.evaluate import main
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.config import EvalArgParser, parse_cli
+    root = _nyu_tree(tmp_path, 0, 2, eval_hw=(320, 416))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = [os.path.join(repo, "params", "args_test_nyu.txt"), "--encoder_name",
+            "efficientnet-b1", "--data_path_eval", str(root), "--gt_path_eval", str(root),
+            "--filenames_file_eval", str(root / "eval.txt"), "--checkpoint_path",
+            str(tmp_path / "model.pt"), "--save_dir", str(tmp_path / "pred")]
+    torch.manual_seed(0)
+    torch.save({"model": build_model(parse_cli(EvalArgParser(), argv, mode="eval"))
+                .state_dict()}, tmp_path / "model.pt")
+    counts = (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
+              bins_head.TC_BWD_LAUNCHES, chamfer.LAUNCHES)
+    metrics = main(argv)
+    torch.cuda.synchronize()
+    after = (bins_head.LAUNCHES, bins_head.BWD_LAUNCHES, bins_head.TC_LAUNCHES,
+             bins_head.TC_BWD_LAUNCHES, chamfer.LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, counts)) == (2, 0, 0, 0, 0)
+    assert all(v == v and abs(v) < float("inf") for v in metrics.values())
+    names = sorted(os.listdir(tmp_path / "pred"))
+    assert names == ["__classroom_0001__rgb_0.png.png", "__classroom_0001__rgb_1.png.png"]
+    assert read_png(tmp_path / "pred" / names[0]).shape == (320, 416)
+
+
+@pytest.mark.cuda
+def test_remat_lowers_the_peak_and_keeps_the_step(cuda):
+    """The flagship step at batch 4 of 416x544 under bf16 autocast, with and
+    without --remat encoder from the same weights: the same loss to 1e-3
+    relative, the BN buffers moved once, and a lower peak of device memory."""
+    import types
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state, make_train_step
+    base = dict(n_bins=256, min_depth=1e-3, max_depth=10.0, norm="linear",
+                encoder_name="efficientnet-b1", use_semantics=None,
+                use_instance_segmentation=None, insertion_point="before-attn", image="rgb",
+                w_chamfer=0.1, chamfer=True, epochs=25, lr=0.000357, wd=0.1, div_factor=25.0,
+                final_div_factor=100.0, same_lr=False, encoder_lr_factor=1.0, seed=0,
+                use_fused_head=True, use_pallas_chamfer=True, compute_dtype="bfloat16",
+                accum_steps=1)
+    torch.manual_seed(0)
+    weights = build_model(types.SimpleNamespace(**base)).state_dict()
+    gen = torch.Generator().manual_seed(3)
+    batch = {"image": torch.randn((4, 3, 416, 544), generator=gen).to(cuda),
+             "depth": (0.05 + 9.9 * torch.rand((4, 1, 416, 544), generator=gen)).to(cuda)}
+    out = {}
+    for remat in ("none", "encoder"):
+        args = types.SimpleNamespace(**base, remat=remat)
+        model = build_model(args)
+        model.load_state_dict(weights)
+        state = create_train_state(model.to(cuda), args, steps_per_epoch=10)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        state, metrics = make_train_step(args)(state, batch)
+        torch.cuda.synchronize()
+        out[remat] = (metrics["loss"].item(), torch.cuda.max_memory_allocated() - start,
+                      {k: v.clone() for k, v in model.named_buffers()})
+        del state, model
+    (loss, peak, bufs), (r_loss, r_peak, r_bufs) = out["none"], out["encoder"]
+    assert abs(r_loss - loss) <= 1e-3 * abs(loss)
+    assert r_peak < peak
+    for k, v in bufs.items():
+        if "num_batches" in k:
+            assert int(r_bufs[k]) == int(v) == 1, k
+        else:
+            torch.testing.assert_close(r_bufs[k], v, rtol=1e-3, atol=1e-5, msg=k)

@@ -214,3 +214,59 @@ def test_resume_of_a_missing_checkpoint_raises(tree, tmp_path):
                                              str(tmp_path / "missing.pt")))
     with pytest.raises(FileNotFoundError, match="missing.pt"):
         main_train(args, max_steps=1, interactive=False)
+
+
+
+def test_torchrun_trains_on_two_gloo_ranks(tree, tmp_path):
+    """`torchrun --nproc_per_node 2 -m mde_tpu_torch.train ... --distributed`
+    on the CPU (gloo; B1 noAdaBins, 64x96 crops, one thread a rank), global
+    batch 2 (one image a rank), one epoch of the
+    3-frame split (one step a rank: the split is cut to a multiple of the
+    ranks), validation every step: rank 0 alone writes one latest and one
+    best checkpoint, named by its run id, and the JSONL at the JAX driver's
+    cadence; its logged metrics are those of one process validating the
+    saved weights."""
+    import socket
+
+    from mde_tpu_torch.data import DevicePrefetcher
+    from mde_tpu_torch.train import make_eval_step, validate
+
+    no_tf = tmp_path / "no_tensorflow"
+    (no_tf / "tensorflow").mkdir(parents=True)
+    (no_tf / "tensorflow" / "__init__.py").write_text("raise ImportError('no tensorflow')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(no_tf), REPO]),
+               OMP_NUM_THREADS="1")
+    # the noAdaBins model on 64x96 crops keeps the two ranks cheap; the
+    # AdaBins head under DDP is test_torch_port_ddp.py's
+    argv = _argv(tree, tmp_path / "runs", "--distributed", "--bs", "2", "--validate_every", "1",
+                 "--encoder_name", "efficientnet-b1-noAdaBins", "--input_height", "64",
+                 "--input_width", "96")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+                           "2", "--master_addr", "127.0.0.1", "--master_port", str(port),
+                           "-m", "mde_tpu_torch.train", *argv],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          stdin=subprocess.DEVNULL, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+    args = parse_cli(TrainArgParser(), argv)
+    exp_dir = os.path.join(args.root, args.name)
+    (latest,), (best,) = _checkpoints(exp_dir, "latest"), _checkpoints(exp_dir, "best")
+    assert latest[:-len("_latest.pt")] == best[:-len("_best.pt")]
+    ckpt = torch.load(latest, weights_only=True)
+    assert (ckpt["epoch"], ckpt["step"]) == (0, 1)
+    events = _events(exp_dir)
+    assert [(e["tag"], e["step"]) for e in events] == jax_cadence(0, 1, 1, 1)
+
+    model = build_model(args)
+    model.load_state_dict(ckpt["model"], strict=True)
+    metrics, val_si = validate(args, make_eval_step(args), model,
+                               DevicePrefetcher(DepthDataLoader(args, "online_eval"), "cpu"))
+    # rtol 1e-4: the rank summed its convolutions on one thread, this
+    # process on two (the reading is ~1e-5)
+    logged = {e["tag"]: e["value"] for e in events}
+    np.testing.assert_allclose(logged["Test/SILog"], val_si.get_value(), rtol=1e-4)
+    for k, v in metrics.items():
+        np.testing.assert_allclose(logged[f"Metrics/{k}"], v, rtol=1e-4, err_msg=k)

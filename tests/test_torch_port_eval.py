@@ -172,7 +172,8 @@ def test_eval_step_matches_jax(validated):
     resized from 160x208 to the 480x640 GT and cropped to eigen; one fused
     head call a batch."""
     assert validated["calls"] == [torch.Size([2, 128, 160, 208])] * 3
-    (want_si, want), (si, got) = validated["jax_steps"][0], validated["steps"][0]
+    (want_si, want), (si, got, pred) = validated["jax_steps"][0], validated["steps"][0]
+    assert pred.shape == (2, 1, 160, 208) and pred.dtype == torch.float32
     assert si.shape == (2,) and np.all(np.isfinite(si.numpy()))
     np.testing.assert_allclose(si.numpy(), np.asarray(want_si), rtol=1e-4)
     for name in metrics.METRIC_NAMES:

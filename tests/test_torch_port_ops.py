@@ -31,14 +31,15 @@ SLICE_MODULES = ["mde_tpu_torch", "mde_tpu_torch.ops", "mde_tpu_torch.ops.losses
                  "mde_tpu_torch.kernels.chamfer", "mde_tpu_torch.models",
                  "mde_tpu_torch.checkpoint", "mde_tpu_torch.data", "mde_tpu_torch.infer",
                  "mde_tpu_torch.train", "mde_tpu_torch.utils", "mde_tpu_torch.config",
-                 "mde_tpu_torch.train.driver", "mde_tpu_torch.train.__main__"]
-FORBIDDEN = ("jax", "flax", "mde_tpu", "PIL")
+                 "mde_tpu_torch.train.driver", "mde_tpu_torch.train.__main__",
+                 "mde_tpu_torch.parallel", "mde_tpu_torch.evaluate"]
+FORBIDDEN = ("jax", "flax", "orbax", "mde_tpu", "PIL")
 
 
 def test_port_imports_no_jax_flax_or_pil():
     code = ("import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-            "bad = [m for m in ('jax', 'flax', 'PIL') if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'flax', 'orbax', 'PIL') if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
 

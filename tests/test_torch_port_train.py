@@ -36,6 +36,33 @@ head and chunked chamfer, as `make_train_step` does on the CPU.
   7e-6: the port rounds more there, and its math agrees.
   ROUNDING_FLOOR covers the tensors whose errors are a few float32
   roundings (the regressor: JAX 6.2e-6, the port 1.7e-6).
+
+bf16: the port's step under bf16 autocast against JAX's `build_model(dtype=
+bfloat16)` step (`bf16_steps`; JAX's CPU step takes the XLA head, the port
+the plain version of the tensor-core kernels, `PlainBf16Head`), each held
+against the port's float64 step on the same weights: per parameter group,
+the relative norm error of the group's gradients, the port's at most
+BF16_RATIO (2) x JAX's plus BF16_FLOOR (1e-3), with JAX's below BF16_AGREE
+(0.45) so that a zero gradient fails; the loss against the float32 loss, at
+most 2 x JAX's plus BF16_LOSS_FLOOR (2e-3).
+  The bf16 step runs on the seeded weights with their ReLU and LeakyReLU
+corners lifted (`_lift_corners`). At the seed's own weights a bf16 forward
+is ~15 % off float64 by the decoder (a few roundings a block, over 23
+blocks), so ~10 % of the decoder's LeakyReLUs and the mViT's ReLUs see the
+other side of their corner, each such unit's gradient changing 100-fold;
+both sides' bf16 gradients were then 75-100 % off float64 in the encoder
+and decoder (JAX 0.92 in the blocks), so that reading could not fail a zero
+gradient. With the corners lifted the float32 step's errors fall from ~5e-3
+to ~1e-5. The reading there (`pytest -s -k bf16`, two threads), port / JAX:
+encoder blocks 0.290 / 0.310, encoder BN 0.258 / 0.322, decoder 0.026 /
+0.040, mViT transformer 0.015 / 0.034, regressor 0.0047 / 0.0037, conv_out
+0.080 / 0.067 (conv_out reads 0.053 with four threads: its bf16 error
+depends on the order of the sums); the loss 1.5e-4 (port) and 7.3e-5 (JAX)
+from float32. The two round in different places: flax keeps BatchNorm in
+float32 and rounds its output to bf16, autocast runs it in bf16. Run with
+BatchNorm in float32, the port's decoder and mViT errors rise by ~40 %
+(decoder 0.026 to 0.037, transformer 0.017 to 0.024) and the regressor's
+falls (0.0050 to 0.0037), so the port keeps autocast's BatchNorm.
 """
 
 import types
@@ -242,13 +269,11 @@ def step_inputs():
     return params, stats, image, depth
 
 
-@pytest.fixture(scope="module")
-def f64_grads(step_inputs):
-    """The port's gradients of the same loss on the same weights and batch,
+def _f64_step(params, stats, image, depth):
+    """The port's loss and gradients of the step on these weights and batch,
     in float64: the plain head and the chunked chamfer, with the `.float()`
     casts of the model and the losses (there to lift bf16 under autocast)
     leaving float64 tensors as they are."""
-    params, stats, image, depth = step_inputs
     model = _port_model(params, stats, fused_head=False).double().train()
     to_float = torch.Tensor.float
     mp = pytest.MonkeyPatch()
@@ -260,8 +285,14 @@ def f64_grads(step_inputs):
         loss.backward()
     finally:
         mp.undo()
-    return {k: torch.zeros_like(p) if p.grad is None else p.grad
-            for k, p in model.named_parameters()}
+    return loss.item(), {k: torch.zeros_like(p) if p.grad is None else p.grad
+                         for k, p in model.named_parameters()}
+
+
+@pytest.fixture(scope="module")
+def f64_grads(step_inputs):
+    """The port's float64 gradients on the step's weights and batch."""
+    return _f64_step(*step_inputs)[1]
 
 
 @pytest.fixture(scope="module")
@@ -404,3 +435,103 @@ def test_loss_fn_gradients_reach_the_head(one_step):
     grad = model.conv_out[0].weight.grad
     assert torch.isfinite(grad).all() and grad.abs().sum() > 0
     assert torch.isfinite(l_dense) and torch.isfinite(l_chamfer)
+
+
+# --- bf16 autocast against JAX's bfloat16 model ----------------------------
+
+def _lift_corners(params):
+    """The seeded weights with every ReLU and LeakyReLU input lifted off the
+    corner: +3 on the decoder's BatchNorm biases (a BN output is about unit
+    normal) and the mViT feed-forwards' first bias, +3, +10, +10 on the
+    regressor's three biases (their inputs grow to ~3 after the first)."""
+    params = jax.tree_util.tree_map(np.copy, params)
+    for up in ("up1", "up2", "up3", "up4"):
+        for bn in ("bn_a", "bn_b"):
+            params["decoder"][up][bn]["bias"] += 3.0
+    bins = params["adaptive_bins_layer"]
+    for layer in range(4):
+        bins["patch_transformer"][f"layer_{layer}"]["linear1"]["bias"] += 3.0
+    for i, lift in enumerate((3.0, 10.0, 10.0)):
+        bins[f"regressor_{i}"]["bias"] += lift
+    return params
+
+
+@pytest.fixture(scope="module")
+def bf16_steps(step_inputs):
+    """The port's step under bf16 autocast and JAX's `build_model(dtype=
+    bfloat16)` step, on the step's batch and the weights with their corners
+    lifted (`_lift_corners`), with the port's float32 loss and float64 loss
+    and gradients there."""
+    params, stats, image, depth = step_inputs
+    params = _lift_corners(params)
+    args = _args(compute_dtype="bfloat16")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
+    try:
+        model = jax_build_model(args, dtype=jnp.bfloat16)
+        state = JaxTrainState.create(apply_fn=model.apply, params=params, tx=_grad_keeper(),
+                                     batch_stats=stats)
+        step = jax_make_train_step(model, args, None, None,
+                                   make_mesh("1", devices=jax.devices()[:1]))
+        new_state, metrics = step(state, {"image": jnp.asarray(image),
+                                          "depth": jnp.asarray(depth)}, jax.random.PRNGKey(0))
+        jax_loss = float(metrics["loss"])
+        jax_grads = state_dict_from_flax(
+            jax.tree_util.tree_map(np.asarray, new_state.opt_state["grads"]), stats)
+    finally:
+        mp.undo()
+
+    batch = {"image": _nchw(image), "depth": _nchw(depth)}
+    port = _port_model(params, stats, fused_head=True).train()
+    loss, _, _ = make_loss_fn(args)(port, batch)
+    loss.backward()
+    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+             for k, p in port.named_parameters()}
+    with torch.no_grad():
+        f32_loss, _, _ = make_loss_fn(_args())(_port_model(params, stats, True).train(), batch)
+    f64_loss, f64 = _f64_step(params, stats, image, depth)
+    return dict(loss=loss.item(), grads=grads, jax_loss=jax_loss, jax_grads=jax_grads,
+                f32_loss=f32_loss.item(), f64_loss=f64_loss, f64_grads=f64)
+
+
+BF16_RATIO = 2.0  # the port's bf16 error over JAX's, against the float64 step
+BF16_FLOOR = 1e-3  # relative norm error: a bf16 rounding of the group's values
+BF16_LOSS_FLOOR = 2e-3  # relative: half of bf16's 2**-8 relative spacing
+BF16_AGREE = 0.45  # JAX's bf16 error against the float64 step: below 1/BF16_RATIO
+
+
+def test_bf16_step_loss_as_close_to_float32_as_jax(bf16_steps):
+    """The bf16 loss of each side against the port's float32 loss (itself
+    ~1e-6 relative from float64): the port's error at most BF16_RATIO x
+    JAX's plus BF16_LOSS_FLOOR."""
+    exact = bf16_steps["f32_loss"]
+    assert abs(exact - bf16_steps["f64_loss"]) <= 1e-5 * exact
+    own = abs(bf16_steps["loss"] - exact) / exact
+    theirs = abs(bf16_steps["jax_loss"] - exact) / exact
+    print(f"bf16 loss: port {bf16_steps['loss']:.7f} ({own:.2e} from float32), JAX "
+          f"{bf16_steps['jax_loss']:.7f} ({theirs:.2e}), float32 {exact:.7f}")
+    assert own <= BF16_RATIO * theirs + BF16_LOSS_FLOOR, (own, theirs)
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_bf16_step_gradients_as_close_to_float64_as_jax(bf16_steps, group):
+    """Per parameter group, the relative norm error of the group's bf16
+    gradients against the port's float64 step: the port's may be no more
+    than BF16_RATIO x JAX's plus BF16_FLOOR, and JAX's is below BF16_AGREE,
+    so that the float64 step is the function JAX's bf16 step computes and a
+    zero gradient (error 1) fails the first bound."""
+    prefix, _ = GROUPS[group]
+    f64 = bf16_steps["f64_grads"]
+    names = [k for k in f64 if k.startswith(prefix)]
+    assert names
+
+    def flat(grads):
+        return np.concatenate([grads[k].double().numpy().ravel() for k in names])
+
+    exact = flat(f64)
+    own, theirs = _rel(flat(bf16_steps["grads"]), exact), _rel(flat(bf16_steps["jax_grads"]),
+                                                                 exact)
+    print(f"bf16 {group}: {len(names)} tensors; relative norm error against the port's "
+          f"float64 step: port {own:.3e}, JAX {theirs:.3e}")
+    assert theirs < BF16_AGREE, (own, theirs)
+    assert own <= BF16_RATIO * theirs + BF16_FLOOR, (own, theirs)
