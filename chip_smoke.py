@@ -106,9 +106,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
          every other weight and BN stat the file's
      and phase 3 also times chamfer_wide_kernel (512 bins, on no main path)
      against its plain version and its bound.
- 10. one JSON line on the kernels (launches summed over the main paths:
+ 10. offline cue generation, with seeded weights at full width (no checkpoint
+     is in the repo), on a tree of 8 copies of the NYU frame with depth PNGs:
+     (a) `python -m mde_tpu_torch.offline.generate_semantics` in process:
+         HRNetV2-W48 + C1, bf16, five scales (300-600 on the short side,
+         padded to /32), one uint8 semantic_seg_*.npy a frame; ms a frame,
+         peak bytes, device events a frame; bf16 against float32 at 480x640
+         (argmax agreement, at least HRNET_BF16_AGREE; largest score
+         difference); the float32 card against the CPU at 128x192
+     (b) `generate_instances` (ade20k, --depths, --stats-out, a low
+         --score-thr): Swin-B Cascade Mask R-CNN, bf16, 800x1067 padded to
+         800x1088, the instance npz pair a frame (every frame with
+         detections) and the area/depth pickle; ms a frame, peak, device
+         events, the split of a frame (Swin-B + FPN, RPN with its NMS, the
+         cascade, the classes' NMS, the masks; the host's paste and collapse);
+         the RPN's and the classes' NMS and the roi feature extractions of a
+         frame on its own inputs: ms, device events, peak, card equal to
+         CPU; bf16 and float32 valid counts; FPN maps, RPN outputs and the
+         cascade's probabilities of fixed rois, float32 card against CPU
+     (c) main_train with the sem_glove-25d_inst_ade20k_swin insertion-point-
+         input params file on the generated side files: 2 steps and the
+         closing validation, finite losses, non-empty cue channels, exact
+         launches. No TPU kernel lies on the offline path: its generators
+         launch none of the port's kernels.
+ 11. one JSON line on the kernels (launches summed over the main paths:
      serving, training, the eval and cue training runs, the train CLI, the
-     B5 evaluation, both DDP ranks, the DDP driver run and the remat steps;
+     B5 evaluation, both DDP ranks, the DDP driver run, the remat steps and
+     phase 10's cue training;
      the float32 head backward, which no main path runs, from the float32
      step checks), then the result line.
 
@@ -1112,16 +1136,16 @@ def write_png16(path, depth):
                      + chunk(b"IEND", b""))
 
 
-def nyu_tree(root):
-    """The NYU-format tree: CLI_TRAIN_FRAMES + CLI_EVAL_FRAMES copies of
-    CLASSROOM, each with a smooth millimetre depth map of its own (two
-    sinusoids, 500-9,000 mm) as a 16-bit PNG, and the two split files."""
+def nyu_tree(root, n_train=CLI_TRAIN_FRAMES, n_eval=CLI_EVAL_FRAMES):
+    """The NYU-format tree: n_train + n_eval copies of CLASSROOM, each with a
+    smooth millimetre depth map of its own (two sinusoids, 500-9,000 mm) as a
+    16-bit PNG, and the two split files."""
     scene = root / "classroom_0001"
     scene.mkdir(parents=True)
     rng = np.random.default_rng(SEED)
     yy, xx = np.mgrid[0:FRAME_HW[0], 0:FRAME_HW[1]]
     lines = []
-    for i in range(CLI_TRAIN_FRAMES + CLI_EVAL_FRAMES):
+    for i in range(n_train + n_eval):
         fy, fx, py, px = rng.uniform(0.5, 2.0, 2).tolist() + rng.uniform(0, 1, 2).tolist()
         wave = (0.5 + 0.25 * np.sin(2 * np.pi * (fy * yy / FRAME_HW[0] + py))
                 + 0.25 * np.cos(2 * np.pi * (fx * xx / FRAME_HW[1] + px)))
@@ -1129,8 +1153,8 @@ def nyu_tree(root):
         write_png16(scene / f"sync_depth_{i:05d}.png", np.rint(500 + 8500 * wave).astype(np.uint16))
         lines.append(f"/classroom_0001/rgb_{i:05d}.jpg /classroom_0001/sync_depth_{i:05d}.png "
                      "518.8579")
-    (root / "train.txt").write_text("\n".join(lines[:CLI_TRAIN_FRAMES]) + "\n")
-    (root / "eval.txt").write_text("\n".join(lines[CLI_TRAIN_FRAMES:]) + "\n")
+    (root / "train.txt").write_text("\n".join(lines[:n_train]) + "\n")
+    (root / "eval.txt").write_text("\n".join(lines[n_train:]) + "\n")
 
 
 def driver_cadence(first_step, max_steps):
@@ -1856,6 +1880,416 @@ def pretrained_backbone(gen, work):
     del model
 
 
+# --- phase 10: offline cue generation ----------------------------------------
+
+OFFLINE_TRAIN_FRAMES, OFFLINE_EVAL_FRAMES = 6, 2  # 8 frames, each gets its side files
+OFFLINE_PARAMS_FILE = ("params/args_train_nyu_efficientnet-b1_sem_glove-25d_inst_ade20k_swin_"
+                       "insertion_point_input.txt")
+OFFLINE_SEED = 0
+# a seeded head's class probabilities sit near 1/101; 0.011 keeps the top few
+OFFLINE_SCORE_THR = 0.011
+OFFLINE_SMALL_HW = (128, 192)  # card against CPU, float32, TF32 off
+OFFLINE_REL_TOL = 1e-4   # card vs CPU, float32: of the largest magnitude of the output
+OFFLINE_PROB_TOL = 1e-3  # card vs CPU, float32: the cascade's probabilities, absolute
+# card vs CPU, float32: HRNet's softmax at seg_size, absolute. The seeded
+# trunk's logits reach ~3,800 (flax's initialisation, identity BatchNorm
+# stats), so an error of 3e-6 of that (0.012) moves a near-tie's
+# probability by up to half as much: 9.1e-4 on an H100
+HRNET_PROB_TOL = 1e-2
+HRNET_BF16_AGREE = 0.9   # least share of pixels whose bf16 class is float32's
+DETECTOR_STAGES = ("features", "proposals", "cascade", "multiclass_nms", "masks")
+
+
+class Clock:
+    """Wraps named callables of objects so that each call is synchronized and
+    timed (`times[label]`, ms a call; `ends[label]`, host time at each end)."""
+
+    def __init__(self):
+        self.times, self.ends, self._undo = {}, {}, []
+
+    def wrap(self, owner, name, label=None):
+        real = getattr(owner, name)
+        label = label or name
+        self.times[label], self.ends[label] = [], []
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.times[label].append((t1 - t0) * 1e3)
+            self.ends[label].append(t1)
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, real))
+
+    def restore(self):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+        self._undo = []
+
+
+def device_event_count(fn):
+    """Device events (kernels, copies, fills) of one call of fn, by the profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return len(device_events(prof)), out
+
+
+def frame_walls(ends):
+    """ms between consecutive frame ends, the first frame left out."""
+    return [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+
+
+def rel_err(got, want):
+    return float((got.cpu().double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp(min=1e-30))
+
+
+def run_cli(module, factory, argv):
+    """module.main(argv) with its model factory wrapped to keep the model;
+    the frame function (`segment` / `detect`) and, for the instances, the host
+    `cue_maps` timed. Returns (model, clock, seconds, peak bytes)."""
+    seen = {}
+    real = getattr(module, factory)
+
+    def build(args, device):
+        seen["model"] = real(args, device)
+        return seen["model"]
+
+    clock = Clock()
+    setattr(module, factory, build)
+    clock.wrap(module, "segment" if hasattr(module, "segment") else "detect", "frame")
+    if hasattr(module, "cue_maps"):
+        clock.wrap(module, "cue_maps")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        module.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        setattr(module, factory, real)
+        clock.restore()
+    return seen["model"], clock, seconds, torch.cuda.max_memory_allocated()
+
+
+def offline_semantics(tree, card):
+    """Phase 10a: generate_semantics over the tree; then bf16 against float32
+    at full size, and the float32 card against the CPU at a small frame."""
+    from mde_tpu_torch.data import read_rgb
+    from mde_tpu_torch.offline import generate_semantics as gs
+    from mde_tpu_torch.offline import hrnet as hrnet_module
+    from mde_tpu_torch.offline.hrnet import (IMG_SIZES, HRNetV2C1, _scale_plan,
+                                             hrnet_multiscale_inference)
+    from mde_tpu_torch.offline.layers import seeded
+
+    model, clock, seconds, peak = run_cli(gs, "build_model", [
+        "--images", str(tree), "--random-init", str(OFFLINE_SEED)])
+    frames = sorted(tree.rglob("rgb_*.jpg"))
+    for f in frames:
+        seg = np.load(str(f).replace("rgb", "semantic_seg").replace(".jpg", ".npy"))
+        check(seg.dtype == np.uint8 and seg.shape == FRAME_HW and int(seg.max()) < 150,
+              f"semantics of {f.name}: {seg.dtype} {seg.shape}")
+    img = read_rgb(frames[0]).astype(np.float32) / 255.0
+    events, _ = device_event_count(lambda: gs.segment(model, img))
+    params = sum(p.numel() for p in model.parameters())
+    walls = frame_walls(clock.ends["frame"])
+    split = Clock()
+    split.wrap(hrnet_module, "resize_bilinear_pil", "host resizes")
+    split.wrap(model, "forward", "forwards")
+    split.wrap(gs, "segment")
+    try:
+        for _ in range(2):
+            gs.segment(model, img)
+    finally:
+        split.restore()
+        del model.forward
+    n = len(IMG_SIZES)
+    parts = {k: sum(v[-n:]) if k != "segment" else v[-1] for k, v in split.times.items()}
+    print(f"offline semantics [{card}]: generate_semantics --random-init {OFFLINE_SEED} over "
+          f"{len(frames)} frames of {FRAME_HW[0]}x{FRAME_HW[1]} in {seconds:.2f} s; HRNetV2-W48 + "
+          f"C1, {params} parameters, bf16, five scales (padded "
+          + ", ".join(f"{ph}x{pw}" for _, (ph, pw) in _scale_plan(*FRAME_HW))
+          + f"): segment {statistics.median(clock.times['frame'][1:]):.3f} ms a frame after the "
+          f"first (first {clock.times['frame'][0]:.3f}), frame to frame (decode, segment, save) "
+          f"{statistics.median(walls):.3f} ms; peak {peak} bytes; {events} device events a frame")
+    print(f"offline semantics [{card}]: split of frame 0 (synchronized around each part): "
+          f"segment {parts['segment']:.3f} ms = the {n} PIL-exact resizes on the host "
+          f"{parts['host resizes']:.3f} ms + the {n} forwards to softmax at 480x640 "
+          f"{parts['forwards']:.3f} ms + the rest (normalise, pad, H2D, sum, argmax, D2H) "
+          f"{parts['segment'] - parts['host resizes'] - parts['forwards']:.3f} ms")
+
+    f32 = seeded(HRNetV2C1, OFFLINE_SEED).cuda().eval()
+
+    def summed(m):
+        acc = []
+
+        def apply_fn(x, seg_size):
+            out = m(x.cuda(), seg_size)
+            acc.append(out[0])
+            return out
+
+        with torch.inference_mode():
+            classes = hrnet_multiscale_inference(apply_fn, img)
+        return classes, torch.stack(acc).sum(0)
+
+    cls16, s16 = summed(model)
+    cls32, s32 = summed(f32)
+    agree = float((cls16 == cls32).mean())
+    diff = float((s16.float() - s32).abs().max())
+    print(f"offline semantics [{card}]: bf16 against float32 at {FRAME_HW[0]}x{FRAME_HW[1]}, "
+          f"the same seeded weights: argmax agrees on {100 * agree:.3f}% of pixels (at least "
+          f"{100 * HRNET_BF16_AGREE:.0f}%), largest difference of the summed scores {diff:.4e} "
+          f"(of 5)")
+    check(agree >= HRNET_BF16_AGREE, f"bf16 HRNet agrees with float32 on {agree:.4f}")
+
+    cpu = seeded(HRNetV2C1, OFFLINE_SEED).eval()
+    x = torch.randn((1, 3, *OFFLINE_SMALL_HW), generator=torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        soft = (f32(x.cuda(), OFFLINE_SMALL_HW).cpu(), cpu(x, OFFLINE_SMALL_HW))
+        logs = (f32(x.cuda()).cpu(), cpu(x))
+    soft_err = float((soft[0] - soft[1]).abs().max())
+    log_err = rel_err(*logs)
+    print(f"offline semantics [{card}]: float32 card against CPU at {OFFLINE_SMALL_HW[0]}x"
+          f"{OFFLINE_SMALL_HW[1]} (TF32 off): softmax at seg_size {soft_err:.3e} (tol "
+          f"{HRNET_PROB_TOL:g}), log-softmax {log_err:.3e} of its largest magnitude "
+          f"{float(logs[1].abs().max()):.1f} (tol {OFFLINE_REL_TOL:g})")
+    check(soft_err <= HRNET_PROB_TOL and log_err <= OFFLINE_REL_TOL,
+          "HRNet on the card differs from the CPU")
+    del model, f32, cpu
+    torch.cuda.empty_cache()
+
+
+def offline_ops(model, img, card):
+    """Phase 10b: the RPN's and the classes' NMS and the roi feature
+    extractions of one frame, on its own inputs: launches, times, the card
+    against the CPU (equal)."""
+    from mde_tpu_torch.offline import cascade_rcnn, detection_ops
+    from mde_tpu_torch.offline import generate_instances as gi
+
+    nms_calls, feats, proposals, dets = [], {}, {}, {}
+    real_nms = cascade_rcnn.batched_nms_fixed
+
+    def nms(*a):
+        nms_calls.append(a)
+        return real_nms(*a)
+
+    real = {name: getattr(model, name) for name in ("features", "proposals", "multiclass_nms")}
+    model.features = lambda *a: feats.setdefault("v", real["features"](*a))
+    model.proposals = lambda *a: proposals.setdefault("v", real["proposals"](*a))
+    model.multiclass_nms = lambda *a: dets.setdefault("v", real["multiclass_nms"](*a))
+    cascade_rcnn.batched_nms_fixed = nms
+    try:
+        gi.detect(model, img)
+    finally:
+        cascade_rcnn.batched_nms_fixed = real_nms
+        for name in real:
+            delattr(model, name)
+    for label, (boxes, scores, ids, thr, max_out) in zip(("rpn", "classes"), nms_calls):
+        events, got = device_event_count(lambda: real_nms(boxes, scores, ids, thr, max_out))
+        want = real_nms(boxes.cpu(), scores.cpu(), ids.cpu(), thr, max_out)
+        equal = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        ms = cuda_ms(lambda: real_nms(boxes, scores, ids, thr, max_out), iters=5, warmup=1)
+        print(f"offline NMS [{card}]: {label}: {boxes.shape[0]} candidates, {max_out} steps, IoU "
+              f"{thr}: {ms:.3f} ms, {events} device events a call, {int(got[1].sum())} kept; "
+              f"card equals CPU: {equal}")
+        check(equal, f"{label} NMS on the card differs from the CPU")
+    fpn = feats["v"][:4]
+    for label, rois, size in (("cascade rois", proposals["v"][0], 7),
+                              ("mask rois", dets["v"][0], 14)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = detection_ops.extract_roi_features(fpn, rois, size)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        want = detection_ops.extract_roi_features([f.cpu() for f in fpn], rois.cpu(), size)
+        ms = cuda_ms(lambda: detection_ops.extract_roi_features(fpn, rois, size), iters=5)
+        equal = torch.equal(got.cpu(), want)
+        events, _ = device_event_count(lambda: detection_ops.extract_roi_features(fpn, rois, size))
+        print(f"offline RoIAlign [{card}]: {label}: {rois.shape[0]} rois on their FPN levels "
+              f"({fpn[0].dtype} maps), {size}x{size} bins, 2x2 taps: {ms:.3f} ms, {events} device "
+              f"events, {peak} bytes above the inputs at peak; card equals CPU: {equal}")
+        check(equal, "RoIAlign on the card differs from the CPU")
+
+
+def offline_instances(tree, card):
+    """Phase 10b: generate_instances over the tree (ade20k, --depths,
+    --stats-out); the split of a frame; NMS and RoIAlign; bf16 against
+    float32 at full size; the float32 card against the CPU at a small frame."""
+    import pickle
+
+    from mde_tpu_torch.data import read_rgb
+    from mde_tpu_torch.offline import generate_instances as gi
+    from mde_tpu_torch.offline.cascade_rcnn import CascadeMaskRCNN
+    from mde_tpu_torch.offline.layers import seeded
+
+    stats = tree / "instance_stats.pkl"
+    model, clock, seconds, peak = run_cli(gi, "build_detector", [
+        "--images", str(tree), "--random-init", str(OFFLINE_SEED), "--score-thr",
+        str(OFFLINE_SCORE_THR), "--depths", str(tree), "--stats-out", str(stats)])
+    frames = sorted(tree.rglob("rgb_*.jpg"))
+    with_detections = 0
+    for f in frames:
+        maps = [np.load(str(f).replace("rgb", f"instance_{k}_ade20k_swin").replace(".jpg", ".npz"),
+                        allow_pickle=True)["arr_0"] for k in ("labels", "areas")]
+        if maps[0].dtype != object:
+            check(maps[0].shape == maps[1].shape == FRAME_HW and maps[0].dtype == np.int32
+                  and int(maps[0].max()) < 100, f"instance maps of {f.name}")
+            with_detections += int((maps[0] >= 0).any())
+    with open(stats, "rb") as fh:
+        points = pickle.load(fh)
+    check(with_detections == len(frames), f"{with_detections} of {len(frames)} frames have "
+          "detections: lower --score-thr")
+    check(len(points) == 101 and sum(map(len, points)) > 0, "no area/depth statistics")
+    img = read_rgb(frames[0])
+    events, det = device_event_count(lambda: gi.detect(model, img))
+    n_valid16 = int(det["valid"].sum())
+    split = Clock()
+    split.wrap(gi, "preprocess")
+    for name in DETECTOR_STAGES:
+        split.wrap(model, name)
+    split.wrap(gi, "detect")
+    try:
+        for _ in range(2):
+            gi.detect(model, img)
+    finally:
+        split.restore()
+        for name in DETECTOR_STAGES:
+            delattr(model, name)
+    params = sum(p.numel() for p in model.parameters())
+    walls = frame_walls(clock.ends["cue_maps"])
+    stage_ms = {k: v[-1] for k, v in split.times.items()}
+    print(f"offline instances [{card}]: generate_instances --random-init {OFFLINE_SEED} "
+          f"--score-thr {OFFLINE_SCORE_THR} --depths --stats-out over {len(frames)} frames in "
+          f"{seconds:.2f} s; Swin-B Cascade Mask R-CNN, {params} parameters, bf16, 800x1067 "
+          f"padded to 800x1088: detect {statistics.median(clock.times['frame'][1:]):.3f} ms a "
+          f"frame after the first (first {clock.times['frame'][0]:.3f}), paste + collapse on the "
+          f"host {statistics.median(clock.times['cue_maps'][1:]):.3f} ms, frame to frame "
+          f"(decode, resize, detect, paste, collapse, save) {statistics.median(walls):.3f} ms; "
+          f"peak {peak} bytes; {events} device events a frame; {n_valid16} valid detections on "
+          f"frame 0, {sum(map(len, points))} area/depth points")
+    print(f"offline instances [{card}]: split of frame 0 (synchronized between stages): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+          + f", the rest of detect (H2D, D2H, box scaling) "
+          f"{stage_ms['detect'] - sum(v for k, v in stage_ms.items() if k != 'detect'):.3f} ms "
+          "(preprocess = the host's PIL-exact upscale, normalisation and padding; features = "
+          "Swin-B + FPN; proposals = RPN head, top-k, NMS; cascade = 3 bbox stages; "
+          "multiclass_nms = the classes' NMS; masks = 3 mask heads)")
+    offline_ops(model, img, card)
+
+    f32 = seeded(lambda: CascadeMaskRCNN(100, OFFLINE_SCORE_THR), OFFLINE_SEED).cuda().eval()
+    n_valid32 = int(gi.detect(f32, img)["valid"].sum())
+    print(f"offline instances [{card}]: bf16 against float32 at 800x1088, the same seeded "
+          f"weights: {n_valid16} against {n_valid32} valid detections on frame 0 (both must "
+          f"have some)")
+    check(n_valid16 > 0 and n_valid32 > 0, "a detector found nothing")
+
+    cpu = seeded(lambda: CascadeMaskRCNN(100, OFFLINE_SCORE_THR), OFFLINE_SEED).eval()
+    x = torch.randn((1, 3, *OFFLINE_SMALL_HW), generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    xy = rng.uniform(0, [OFFLINE_SMALL_HW[1] - 8, OFFLINE_SMALL_HW[0] - 8], (64, 2))
+    rois = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(8, 100, (64, 2))], 1)
+                            .astype(np.float32))
+    with torch.inference_mode():
+        feats = (f32.features(x.cuda()), cpu.features(x))
+        rpn = (f32.rpn_head(feats[0]), cpu.rpn_head(feats[1]))
+        casc = (f32.cascade(feats[0], rois.cuda(), OFFLINE_SMALL_HW)[1],
+                cpu.cascade(feats[1], rois, OFFLINE_SMALL_HW)[1])
+    fpn_err = max(rel_err(g, w) for g, w in zip(*feats))
+    rpn_err = max(rel_err(g, w) for (gc, gr), (wc, wr) in zip(*rpn) for g, w in ((gc, wc), (gr, wr)))
+    casc_err = float((casc[0].cpu() - casc[1]).abs().max())
+    print(f"offline instances [{card}]: float32 card against CPU at {OFFLINE_SMALL_HW[0]}x"
+          f"{OFFLINE_SMALL_HW[1]} (TF32 off): FPN maps {fpn_err:.3e}, RPN scores and deltas "
+          f"{rpn_err:.3e} of their largest magnitudes (tol {OFFLINE_REL_TOL:g}); cascade class "
+          f"probabilities of 64 fixed rois {casc_err:.3e} (tol {OFFLINE_PROB_TOL:g})")
+    check(fpn_err <= OFFLINE_REL_TOL and rpn_err <= OFFLINE_REL_TOL
+          and casc_err <= OFFLINE_PROB_TOL, "the detector on the card differs from the CPU")
+    del model, f32, cpu
+    torch.cuda.empty_cache()
+
+
+def offline_train(root, tree, card):
+    """Phase 10c: main_train on the tree's new side files, 2 steps and the
+    closing validation of its 2 eval frames. Returns the launches."""
+    from mde_tpu_torch.config import TrainArgParser, parse_cli
+    from mde_tpu_torch.train import driver
+
+    data = str(tree)
+    args = parse_cli(TrainArgParser(), [
+        OFFLINE_PARAMS_FILE, "--bs", "2", "--epochs", "1", "--validate_every", "1000",
+        "--root", str(root / "runs_offline"), "--data_path", data, "--gt_path", data,
+        "--filenames_file", str(tree / "train.txt"), "--data_path_eval", data,
+        "--gt_path_eval", data, "--filenames_file_eval", str(tree / "eval.txt")])
+    seen = {"loss": []}
+    real = driver.make_train_step
+
+    def make_train_step(*a, **k):
+        step = real(*a, **k)
+
+        def watched(state, batch):
+            seen.setdefault("batch", batch)
+            state, metrics = step(state, batch)
+            seen["loss"].append(float(metrics["loss"]))
+            return state, metrics
+
+        return watched
+
+    driver.make_train_step = make_train_step
+    reset_counts()
+    try:
+        state = driver.main_train(args, max_steps=2, interactive=False)
+    finally:
+        driver.make_train_step = real
+    counts = read_counts()
+    batch = seen["batch"]
+    sem_embedder, inst_embedder = cue_embedders(args)
+    with torch.no_grad():
+        _, sem = sem_embedder(batch["semantics"])
+        _, inst, areas = inst_embedder(batch["instance_labels"], batch["instance_areas"])
+    found = {"semantic classes": int(batch["semantics"].unique().numel()),
+             "instance pixels": int((batch["instance_labels"] >= 0).sum()),
+             "semantic channels' largest": float(sem.abs().max()),
+             "instance channels' largest": float(inst.abs().max()),
+             "area channel's largest": float(areas[:, :1].abs().max())}
+    expected = {"bins_head_fwd": OFFLINE_EVAL_FRAMES, "bins_head_bwd": 0, "bins_head_tc_fwd": 2,
+                "bins_head_tc_bwd": 4, "chamfer": 2}
+    print(f"offline -> training [{card}]: {OFFLINE_PARAMS_FILE} --bs 2 on the generated side "
+          f"files: {state.step} steps, losses {seen['loss']}, first batch {found}; launches "
+          f"{counts}, expected {expected}")
+    check(state.step == 2 and all(np.isfinite(seen["loss"])), "the cue training did not step")
+    check(all(v > 0 for v in found.values()) and found["semantic classes"] > 1,
+          f"a cue channel of the generated files is empty: {found}")
+    check(counts == expected, f"cue training launches {counts}")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def offline(root, card):
+    """Phase 10: the offline cue generators from the NYU frame to a cue
+    configuration's training; `card` is nvidia-smi's name and power limit.
+    Returns the launches of its training run."""
+    tree = root / "offline"
+    nyu_tree(tree, OFFLINE_TRAIN_FRAMES, OFFLINE_EVAL_FRAMES)
+    t0 = time.perf_counter()
+    reset_counts()
+    offline_semantics(tree, card)
+    offline_instances(tree, card)
+    generators = read_counts()
+    print(f"offline [{card}]: launches of the port's kernels by the two generators and "
+          f"their checks: {generators} (no TPU kernel lies on the offline path)")
+    check(not any(generators.values()), "an offline generator launched a port kernel")
+    counts = offline_train(root, tree, card)
+    print(f"offline [{card}]: phase 10 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -1875,7 +2309,7 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
 
-    toolchain(build)
+    card = toolchain(build)
     build_all(build, {bins_head._SOURCE: bins_head.library,
                       bins_head._TC_SOURCE: bins_head.tc_library,
                       chamfer._SOURCE: chamfer.library, native.SOURCE: native.library})
@@ -1953,6 +2387,7 @@ def main(argv):
         add(nccl_main_train(root))
         add(remat(state_dict, gen, args.profile, train_ms, train_peak))
         pretrained_backbone(gen, root)
+        add(offline(root, card))
     print(f"chamfer_wide_kernel ({WIDE_BINS} bins, on no main path: every params file has 256 "
           f"bins): " + json.dumps(wide))
     print(f"launches over the main paths (the float32 head backward from the step "

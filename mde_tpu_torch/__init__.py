@@ -30,12 +30,15 @@ layout module for module so each port can be held against its counterpart:
              scalar logger, running averages)
   infer.py   InferenceHelper: the flip-TTA serving forward
   evaluate.py  official-split evaluation (python -m mde_tpu_torch.evaluate)
+  offline/   cue generation: HRNetV2-W48 + C1 semantics and Swin-B Cascade
+             Mask R-CNN instances (inference), and the two CLIs that write
+             the cue side files (python -m mde_tpu_torch.offline.generate_*)
 
 Slices ported so far: the serving forward, the training step, the cue
 configurations (AdaBins and noAdaBins, cues at the input or before the mViT)
 through the training step, the eval step and `validate`, training from files
-through the CLI, evaluation, data-parallel training, `--remat encoder` and
-`--pretrained_backbone`. The root script `orbax_to_pt.py` (which needs JAX)
+through the CLI, evaluation, data-parallel training, `--remat encoder`,
+`--pretrained_backbone`, and the offline cue generators' inference. The root script `orbax_to_pt.py` (which needs JAX)
 turns the JAX package's orbax checkpoints into the port's `.pt`. This package imports torch and never jax, flax,
 mde_tpu or PIL.
 """

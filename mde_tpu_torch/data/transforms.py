@@ -106,3 +106,65 @@ def augment_image(rng: np.random.Generator, image: np.ndarray, dataset: str) -> 
     colors = rng.uniform(0.9, 1.1, size=3).astype(np.float32)
     image_aug = image_aug * colors[None, None, :]
     return np.clip(image_aug, 0, 1)
+
+
+# Pillow's fixed-point resampler (libImaging/Resample.c): 8-bit samples times
+# coefficients scaled to 2^22, rounded by adding half of the last unit
+_PIL_PRECISION_BITS = 22
+
+
+def _pil_bilinear_taps(in_size: int, out_size: int):
+    """Pillow's `precompute_coeffs` + `normalize_coeffs_8bpc` for the
+    bilinear filter (support 1, widened by the downscale factor): per output
+    sample, the first source index and the ksize integer coefficients
+    (zero past that sample's window). Returns (index (out, ksize) clamped
+    into range, coefficient (out, ksize) int64, xmin (out,), count (out,))."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
+    # C's (int) truncates toward zero
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    count = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = np.arange(ksize)
+    d = np.abs((taps[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
+    w = np.where((d < 1.0) & (taps[None, :] < count[:, None]), 1.0 - d, 0.0)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
+    unit = float(1 << _PIL_PRECISION_BITS)
+    k = np.where(w < 0, np.trunc(-0.5 + w * unit), np.trunc(0.5 + w * unit)).astype(np.int64)
+    index = np.minimum(xmin[:, None] + taps[None, :], in_size - 1)
+    return index, k, xmin, count
+
+
+def _pil_pass(img: np.ndarray, index: np.ndarray, k: np.ndarray, axis: int) -> np.ndarray:
+    """One separable pass along `axis` of a uint8 array, rounded and clipped
+    to uint8 as Pillow's `clip8`."""
+    shape = img.shape[:axis] + (index.shape[0],) + img.shape[axis + 1:]
+    acc = np.full(shape, 1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    bcast = (-1,) + (1,) * (img.ndim - axis - 1)
+    for t in range(index.shape[1]):
+        acc += np.take(img, index[:, t], axis=axis).astype(np.int64) * k[:, t].reshape(bcast)
+    return np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_pil(img_u8: np.ndarray, size) -> np.ndarray:
+    """`PIL.Image.fromarray(img_u8).resize(size, Image.BILINEAR)` for an
+    (H, W) or (H, W, C) uint8 array, bit for bit (Pillow 12; the card's
+    machine has no Pillow). `size` is (width, height), as PIL's. The
+    horizontal pass runs over the rows the vertical pass reads, then the
+    vertical pass, each rounded to uint8, as Pillow's `ImagingResampleInner`."""
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img_u8.shape[:2]
+    if img_u8.dtype != np.uint8:
+        raise ValueError(f"resize_bilinear_pil takes uint8, not {img_u8.dtype}")
+    out = img_u8
+    v_index, v_k, ymin, ycount = _pil_bilinear_taps(h, out_h)
+    if out_w != w:
+        first, last = int(ymin[0]), int(ymin[-1] + ycount[-1])
+        out = _pil_pass(img_u8[first:last], *_pil_bilinear_taps(w, out_w)[:2], axis=1)
+        v_index = v_index - first
+    if out_h != h:
+        out = _pil_pass(out, v_index, v_k, axis=0)
+    return out.copy() if out is img_u8 else out

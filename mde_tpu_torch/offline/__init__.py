@@ -1,0 +1,26 @@
+"""Offline cue generation, the port of `mde_tpu/offline/` (inference):
+
+  hrnet.py            HRNetV2-W48 + C1 (CSAIL names), `load_hrnet_c1`, the
+                      five-scale test protocol
+  swin.py, fpn.py     Swin-B and the FPN neck (mmdet names), the bicubic
+                      position-table resize
+  cascade_rcnn.py     Cascade Mask R-CNN inference, `load_detector`, the
+                      host functions `paste_masks` and `collapse_detections`
+  detection_ops.py    anchors, delta decoding, fixed-capacity NMS, RoIAlign
+  layers.py           float32 norms, the compute-dtype cast, seeded
+                      initialisation, the checked state_dict load
+  generate_semantics.py, generate_instances.py
+                      the CLIs (`python -m mde_tpu_torch.offline.generate_*`)
+                      that write the cue side files the cue configurations
+                      train on
+
+No TPU kernel lies on this path: the JAX package runs it as XLA code, and
+the port as plain PyTorch (cuDNN and cuBLAS for the convolutions and
+products). Imports nothing of jax, flax, mde_tpu or PIL.
+"""
+
+from .cascade_rcnn import CascadeMaskRCNN, load_detector
+from .hrnet import HRNetV2C1, hrnet_multiscale_inference, load_hrnet_c1
+
+__all__ = ["CascadeMaskRCNN", "HRNetV2C1", "hrnet_multiscale_inference", "load_detector",
+           "load_hrnet_c1"]

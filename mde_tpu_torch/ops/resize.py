@@ -10,6 +10,13 @@ which moves outputs by as much times the local step. The JAX package builds
 its taps in float64, so a float32 input is resized in float64 here and
 rounded back: the two then agree to float32 rounding.
 
+`resize_bilinear_half_pixel` is the JAX package's half-pixel (align_corners
+=False) resize (`mde_tpu/ops/resize.py:141-172`), which only the offline
+HRNet and `paste_masks` use: the same separable matmul over the same taps
+(`_linear_weights_half_pixel`, float64 rounded to float32), float32 inputs
+in float64 and bfloat16 ones in float32, then rounded back. `F.interpolate`
+is not used: its float32 taps are off by up to ~2e-5 px.
+
 `resize_bilinear_align_corners_np` is the port's copy of the JAX package's
 host-side resize (`mde_tpu/ops/resize.py:103`, with its taps
 `_linear_weights_align_corners` :29): taps in float64 rounded to float32,
@@ -58,6 +65,34 @@ def _linear_weights_align_corners(in_size: int, out_size: int) -> np.ndarray:
     w[rows, lo] = 1.0 - frac
     w[rows, lo + 1] = frac
     return w.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=128)
+def _linear_weights_half_pixel(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) bilinear weights, torch align_corners=False
+    (half-pixel centres, edge-clamped), float32 from float64 taps."""
+    scale = in_size / out_size
+    src = np.clip((np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5, 0.0, in_size - 1)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, max(in_size - 2, 0))
+    frac = np.clip(src - lo, 0.0, 1.0)
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    rows = np.arange(out_size)
+    w[rows, lo] = 1.0 - frac
+    w[rows, np.minimum(lo + 1, in_size - 1)] += frac
+    return w.astype(np.float32)
+
+
+def resize_bilinear_half_pixel(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear align_corners=False resize of (..., H, W) to out_hw."""
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    h, w = x.shape[-2:]
+    if (h, w) == (out_h, out_w):
+        return x
+    work = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else torch.float64
+    wh = torch.from_numpy(_linear_weights_half_pixel(h, out_h)).to(x.device, work)
+    ww = torch.from_numpy(_linear_weights_half_pixel(w, out_w)).to(x.device, work)
+    y = torch.matmul(torch.matmul(wh, x.to(work)), ww.T)  # H, then W, as the JAX package
+    return y.to(x.dtype)
 
 
 def resize_bilinear_align_corners_np(x: np.ndarray, out_hw) -> np.ndarray:

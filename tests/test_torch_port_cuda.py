@@ -740,3 +740,55 @@ def test_remat_lowers_the_peak_and_keeps_the_step(cuda):
             assert int(r_bufs[k]) == int(v) == 1, k
         else:
             torch.testing.assert_close(r_bufs[k], v, rtol=1e-3, atol=1e-5, msg=k)
+
+
+@pytest.mark.cuda
+def test_offline_clis_write_the_side_files_on_the_card(cuda, tmp_path):
+    """Both offline CLIs at full width (seeded weights, bf16) on a tree of two
+    480x640 frames: one uint8 semantic map and one ade20k label and area
+    npz pair a frame, readable by the dataset; the score threshold low
+    enough that the seeded head has valid detections."""
+    import numpy as np
+
+    from mde_tpu_torch.offline import generate_instances, generate_semantics
+    root = _nyu_tree(tmp_path, 2, 0)
+    generate_semantics.main(["--images", str(root), "--random-init", "0"])
+    generate_instances.main(["--images", str(root), "--random-init", "0", "--score-thr", "0.011"])
+    scene = root / "classroom_0001"
+    for i in range(2):
+        seg = np.load(scene / f"semantic_seg_{i}.npy")
+        assert seg.dtype == np.uint8 and seg.shape == (480, 640) and seg.max() < 150
+        labels = np.load(scene / f"instance_labels_ade20k_swin_{i}.npz", allow_pickle=True)["arr_0"]
+        areas = np.load(scene / f"instance_areas_ade20k_swin_{i}.npz", allow_pickle=True)["arr_0"]
+        assert labels.shape == areas.shape == (480, 640) and labels.dtype == np.int32
+        assert (labels >= 0).any() and ((labels >= 0) == (areas > 0)).all()
+
+
+@pytest.mark.cuda
+def test_offline_nms_and_roi_align_equal_the_cpu(cuda):
+    """nms_fixed over 4,663 boxes (the RPN's candidate count at 800x1088) and
+    roi_align / extract_roi_features of 1,000 rois on four FPN levels, the
+    same inputs on the card and the CPU: equal (elementwise float32 and a
+    fixed order of adds on both)."""
+    import numpy as np
+
+    from mde_tpu_torch.offline import detection_ops as ops
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, [1088, 800], (4663, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(4, 300, (4663, 2))], 1)
+                             .astype(np.float32))
+    scores = torch.from_numpy(rng.uniform(size=4663).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 5, 4663))
+    want = ops.batched_nms_fixed(boxes, scores, ids, 0.7, 1000)
+    got = ops.batched_nms_fixed(boxes.to(cuda), scores.to(cuda), ids.to(cuda), 0.7, 1000)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    feats = [torch.randn((1, 256, 800 // s, 1088 // s), generator=torch.Generator().manual_seed(s))
+             for s in (4, 8, 16, 32)]
+    rois = boxes[:1000]
+    for size in (7, 14):
+        want = ops.extract_roi_features(feats, rois, size)
+        got = ops.extract_roi_features([f.to(cuda) for f in feats], rois.to(cuda), size)
+        assert torch.equal(got.cpu(), want)
+    want = ops.roi_align(feats[0], rois, 7, 0.25)
+    assert torch.equal(ops.roi_align(feats[0].to(cuda), rois.to(cuda), 7, 0.25).cpu(), want)

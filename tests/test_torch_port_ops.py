@@ -32,7 +32,9 @@ SLICE_MODULES = ["mde_tpu_torch", "mde_tpu_torch.ops", "mde_tpu_torch.ops.losses
                  "mde_tpu_torch.checkpoint", "mde_tpu_torch.data", "mde_tpu_torch.infer",
                  "mde_tpu_torch.train", "mde_tpu_torch.utils", "mde_tpu_torch.config",
                  "mde_tpu_torch.train.driver", "mde_tpu_torch.train.__main__",
-                 "mde_tpu_torch.parallel", "mde_tpu_torch.evaluate"]
+                 "mde_tpu_torch.parallel", "mde_tpu_torch.evaluate", "mde_tpu_torch.offline",
+                 "mde_tpu_torch.offline.generate_semantics",
+                 "mde_tpu_torch.offline.generate_instances"]
 FORBIDDEN = ("jax", "flax", "orbax", "mde_tpu", "PIL")
 
 
