@@ -129,7 +129,34 @@ Phases, each of which ends the run with a non-zero exit if it fails:
          closing validation, finite losses, non-empty cue channels, exact
          launches. No TPU kernel lies on the offline path: its generators
          launch none of the port's kernels.
- 11. one JSON line on the kernels (launches summed over the main paths:
+ 11. offline training and evaluation, seeded weights at full width, on a
+     COCO tree of 8 copies of the NYU frame (polygons of two parts with float
+     vertices, uncompressed RLE, bbox-only, crowd and sub-pixel boxes over
+     100 classes), none of it launching a port kernel:
+     (a) `python -m mde_tpu_torch.offline.train_detector` in process: Swin-B
+         Cascade Mask R-CNN, 100 classes, bf16 from float32 masters,
+         use_checkpoint, the full AutoAugment scale set (up to 800x1067,
+         padded to 800x1088), --max-gt 100, 2 warm-up and 8 timed steps:
+         every loss finite; step median / min / max ms, peak bytes, device
+         events a step; the mmdet-layout checkpoint loads strictly through
+         load_detector, every tensor equal
+     (b) one float32 step at a fixed 256x352 scale (128 rois a stage) on the
+         card and on the CPU with the same sampler draws: losses rtol 1e-3,
+         the bbox heads' updated BN stats 1e-4 relative
+     (c) one bf16 step at 800x1088 with and without use_checkpoint, the same
+         draws: losses within 1e-3, a lower peak with it
+     (d) `eval_detector` on the tree with (a)'s checkpoint: bbox and segm mAP
+         and mAP50, each in [0, 1] or NaN; ms a frame
+     (e) HRNetV2-W48 + C1 training: 150 classes, float32, batch 2 of 480x640,
+         labels at 120x160 with a -1 border, SGD + poly, 2 + 8 steps on one
+         batch (finite, the last loss below the first; ms, peak, device
+         events); one step at 128x192 card against CPU (loss rtol 1e-4, BN
+         buffers 1e-4 relative)
+     (f) `eval_semseg` on an odgt of 4 frames with seeded CSAIL-named
+         encoder / decoder files and --result-dir: each prediction equal to a
+         direct hrnet_multiscale_inference call, mIoU and accuracy, the RGB
+         grids written
+ 12. one JSON line on the kernels (launches summed over the main paths:
      serving, training, the eval and cue training runs, the train CLI, the
      B5 evaluation, both DDP ranks, the DDP driver run, the remat steps and
      phase 10's cue training;
@@ -2290,6 +2317,505 @@ def offline(root, card):
     return counts
 
 
+# --- phase 11: offline training and evaluation ----------------------------------
+
+COCO_FRAMES, COCO_CLASSES = 8, 100
+DET_WARMUP, DET_TIMED = 2, 8
+DET_SMALL_SCALE = (256, 352)  # card against CPU, float32, TF32 off
+# rois a stage in the card-against-CPU step (the CLI samples 512): the CPU's
+# share of the phase is the mask heads' convolutions over them
+DET_COMPARE_SAMPLES = 128
+DET_LOSS_RTOL = 1e-3          # card vs CPU, float32; remat vs not, bf16
+DET_BN_TOL = 1e-4             # card vs CPU: the bbox heads' BN stats, relative
+DET_REMAT_SCALE = (800, 1333)  # the policy's largest scale: 800x1067, padded 800x1088
+HRNET_TRAIN_BATCH, HRNET_TRAIN_HW = 2, (480, 640)
+HRNET_STEP_HW = (128, 192)    # card against CPU
+HRNET_LOSS_RTOL, HRNET_BN_TOL = 1e-4, 1e-4
+SEMSEG_FRAMES = 4
+
+
+def rle_counts(mask):
+    """Uncompressed COCO RLE of a (h, w) {0, 1} mask: column-major runs,
+    starting with a run of zeros."""
+    flat = mask.T.reshape(-1).astype(np.int8)
+    cuts = np.flatnonzero(np.diff(flat)) + 1
+    runs = np.diff(np.concatenate([[0], cuts, [flat.size]]))
+    return ([0] if flat[0] else []) + [int(r) for r in runs]
+
+
+def coco_tree(root):
+    """COCO_FRAMES copies of CLASSROOM and one instances json over
+    COCO_CLASSES classes: per frame two polygons of two parts with float
+    vertices, two uncompressed RLE masks, two bbox-only boxes, a crowd region
+    and a box under 1 px wide. Returns the json's path."""
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    h, w = FRAME_HW
+    yy, xx = np.mgrid[:h, :w]
+    images, anns = [], []
+    for i in range(COCO_FRAMES):
+        shutil.copyfile(CLASSROOM, root / f"{i:05d}.jpg")
+        images.append({"id": i, "file_name": f"{i:05d}.jpg", "height": h, "width": w})
+        for j in range(6):
+            x, y = rng.uniform(0, [w - 220, h - 170])
+            bw, bh = rng.uniform(40, 220), rng.uniform(30, 170)
+            ann = {"id": len(anns), "image_id": i, "iscrowd": 0, "bbox": [x, y, bw, bh],
+                   "category_id": int(rng.integers(1, COCO_CLASSES + 1))}
+            if j % 3 == 0:
+                ann["segmentation"] = [[x, y, x + bw, y + 0.2 * bh, x + 0.5 * bw, y + bh],
+                                       [x + 0.1 * bw, y + 0.6 * bh, x + 0.4 * bw, y + 0.7 * bh,
+                                        x + 0.2 * bw, y + 0.95 * bh]]
+            elif j % 3 == 1:
+                inside = (((xx + 0.5 - x - bw / 2) / (bw / 2)) ** 2
+                          + ((yy + 0.5 - y - bh / 2) / (bh / 2)) ** 2) <= 1
+                ann["segmentation"] = {"size": [h, w], "counts": rle_counts(inside)}
+            anns.append(ann)
+        anns.append({"id": len(anns), "image_id": i, "iscrowd": 1, "category_id": 1,
+                     "bbox": [0, 0, 50, 50], "segmentation": [[0, 0, 50, 0, 50, 50]]})
+        anns.append({"id": len(anns), "image_id": i, "iscrowd": 0, "category_id": 2,
+                     "bbox": [10, 10, 0.8, 30]})
+    path = root / "instances.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns, "categories": [
+        {"id": c, "name": f"class{c}"} for c in range(1, COCO_CLASSES + 1)]}))
+    return path
+
+
+def profiled(fn):
+    """(out, device events, device busy ms, wall ms, the profile) of one call
+    of fn under the profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_us, n = device_busy_us(prof)
+    return out, n, busy_us / 1e3, wall, prof
+
+
+def top_device_ops(prof, n=4):
+    """The n ops of a profile with the most device time of their own: name, ms."""
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:n]
+    return ", ".join(f"{name[:60]} {us / 1e3:.1f} ms" for name, us in rows)
+
+
+def write_profile(prof, profile_dir, name):
+    if profile_dir is None:
+        return
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    averages = prof.key_averages()
+    (out / f"chip_smoke_profile_{name}.txt").write_text(
+        averages.table(sort_by="self_cuda_time_total", row_limit=30, max_name_column_width=80)
+        + "\n" + averages.table(sort_by="self_cpu_time_total", row_limit=30,
+                                 max_name_column_width=80))
+
+
+def recorded_uniform(device):
+    """(uniform(n) drawing on the CPU and handing a copy to `device`, the draws)."""
+    gen, draws = torch.Generator().manual_seed(SEED), []
+
+    def uniform(n):
+        draws.append(torch.rand(n, generator=gen))
+        return draws[-1].to(device)
+
+    return uniform, draws
+
+
+def replayed_uniform(draws, device):
+    it = iter(draws)
+    return lambda n: next(it).to(device)
+
+
+def bbox_bn_stats(model):
+    return [t.detach().float().cpu() for head in model.roi_head.bbox_head
+            for conv in head.shared_convs for t in (conv.bn.running_mean, conv.bn.running_var)]
+
+
+def train_detector_cli(tree, ann, out, card, profile_dir):
+    """Phase 11a: train_detector.main in process: 2 + 8 steps of the seeded
+    full-width detector (bf16, use_checkpoint) on the COCO tree under the
+    full AutoAugment scale set; then the split of one step at 800x1088.
+    Returns the checkpoint's path."""
+    from mde_tpu_torch.offline import train_detector as td
+    from mde_tpu_torch.offline.cascade_rcnn import load_detector
+
+    times, ends, losses, sizes, events, saves = [], [], [], [], [], []
+    real_step, real_save = td.train_step, td.save_checkpoint
+
+    def step(model, opt, sched, sample, uniform, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(times) == DET_WARMUP - 1:  # the last warm-up step, under the profiler
+            out, n, busy, wall, prof = profiled(lambda: real_step(model, opt, sched, sample,
+                                                                  uniform))
+            events.append((n, busy, wall, top_device_ops(prof), tuple(sample["image"].shape[:2])))
+            write_profile(prof, profile_dir, "detector_step")
+        else:
+            out = real_step(model, opt, sched, sample, uniform, *a, **k)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        times.append((ends[-1] - t0) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+        sizes.append(tuple(sample["image"].shape[:2]))
+        if len(times) == DET_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def save(path, *a):
+        t0 = time.perf_counter()
+        real_save(path, *a)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+
+    td.train_step, td.save_checkpoint = step, save
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        model = td.main(["--images", str(tree), "--annotations", str(ann), "--num-classes",
+                         str(COCO_CLASSES), "--epochs", "2", "--max-steps",
+                         str(DET_WARMUP + DET_TIMED), "--log-every", "1", "--save-every",
+                         "1000000", "--max-gt", "100", "--out", str(out)])
+        seconds = time.perf_counter() - t0
+    finally:
+        td.train_step, td.save_checkpoint = real_step, real_save
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    timed = times[DET_WARMUP:]
+    walls = frame_walls(ends[DET_WARMUP - 1:])
+    print(f"train_detector [{card}]: {len(times)} steps in {seconds:.1f} s; Swin-B Cascade Mask "
+          f"R-CNN, {COCO_CLASSES} classes, bf16 from float32 masters, use_checkpoint, one image a "
+          f"step, padded sizes {sorted(set(sizes))}: step median {statistics.median(timed):.3f} "
+          f"ms (min {min(timed):.3f}, max {max(timed):.3f}) over {len(timed)}; step to step "
+          f"with the host's decode, AutoAugment and GT padding {statistics.median(walls):.3f} "
+          f"ms; peak {peak} bytes after warm-up; checkpoint saves (s, bytes) {saves}")
+    n, busy, wall, top, hw = events[0]
+    print(f"train_detector [{card}]: the profiled warm-up step at {hw[0]}x{hw[1]}: {n} device "
+          f"events, device busy {busy:.1f} of {wall:.1f} ms ({100 * busy / wall:.1f} %); most "
+          f"device time: {top}")
+    print(f"train_detector [{card}]: losses " + json.dumps(
+        [{k: round(v, 5) for k, v in l.items()} for l in losses]))
+    check(len(times) == DET_WARMUP + DET_TIMED, f"train_detector took {len(times)} steps")
+    check(all(np.isfinite(list(l.values())).all() for l in losses), "a detector loss is not finite")
+    check(not any(counts.values()), f"train_detector launched a port kernel: {counts}")
+    check(len(set(sizes)) > 1 and all(480 <= h <= 800 for h, _ in sizes),
+          f"AutoAugment's padded sizes: {sizes}")
+    path = out / "detector_latest.pth"
+    loaded = load_detector(str(path), num_classes=COCO_CLASSES).state_dict()
+    mine = model.state_dict()
+    check(set(loaded) == set(mine) and all(torch.equal(loaded[k], v.cpu())
+                                           for k, v in mine.items()),
+          "the written checkpoint does not load back through load_detector")
+    print(f"train_detector [{card}]: {path.name} ({os.path.getsize(path)} bytes) loads strictly "
+          f"through load_detector, every tensor equal")
+    detector_split(model, tree, ann, card)
+    del model
+    torch.cuda.empty_cache()
+    return path
+
+
+def detector_split(model, tree, ann, card):
+    """The split of one bf16 step at 800x1088 (synchronized around each part,
+    after one step that creates the AdamW state)."""
+    from mde_tpu_torch.offline import cascade_rcnn, detection_train
+    from mde_tpu_torch.offline import train_detector as td
+    from mde_tpu_torch.offline.coco_dataset import CocoInstanceDataset
+    from mde_tpu_torch.offline.detection_data import detector_optimizer, fixed_scales
+    from mde_tpu_torch.offline.detection_train import generator_uniform
+
+    sample = CocoInstanceDataset(str(tree), str(ann)).train_sample(
+        np.random.default_rng(SEED), 0, max_gt=100, scales=fixed_scales(*DET_REMAT_SCALE))
+    opt, sched = detector_optimizer(model, steps_per_epoch=COCO_FRAMES)
+    uniform = generator_uniform(torch.Generator(device="cuda").manual_seed(SEED))
+    td.train_step(model, opt, sched, sample, uniform)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    clock = Clock()
+    for name in ("features", "proposals"):
+        clock.wrap(model, name)
+    for name in ("rpn_loss", "rcnn_stage_targets", "mask_targets"):
+        clock.wrap(detection_train, name)
+    clock.wrap(cascade_rcnn, "extract_roi_features")
+    try:
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = model.compute_losses(
+            put(sample["image"]).permute(2, 0, 1)[None], put(sample["gt_boxes"]),
+            put(sample["gt_labels"]).long(), put(sample["gt_valid"]),
+            put(sample["gt_masks"][:max(int(sample["gt_valid"].sum()), 1)]), uniform,
+            tuple(sample["valid_hw"]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        clock.restore()
+        for name in ("features", "proposals"):
+            delattr(model, name)
+    losses["total"].backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    parts = ", ".join(f"{k} {sum(v):.1f} ms ({len(v)} calls)" for k, v in clock.times.items())
+    print(f"train_detector [{card}]: split of one step at {sample['image'].shape[0]}x"
+          f"{sample['image'].shape[1]} (synchronized around each part): compute_losses "
+          f"{1e3 * (t1 - t0):.1f} ms, of it {parts}; backward {1e3 * (t2 - t1):.1f} ms (the Swin "
+          f"blocks recomputed, RoIAlign's scatter); AdamW {1e3 * (t3 - t2):.1f} ms")
+    del opt
+
+
+def detector_card_vs_cpu(tree, ann, card):
+    """Phase 11b: one float32 step at a fixed 256x352 scale on the card and on
+    the CPU, the same sample and sampler draws: losses and the bbox heads'
+    BN stats."""
+    from mde_tpu_torch.offline import train_detector as td
+    from mde_tpu_torch.offline.cascade_rcnn import CascadeMaskRCNN
+    from mde_tpu_torch.offline.coco_dataset import CocoInstanceDataset
+    from mde_tpu_torch.offline.detection_data import detector_optimizer, fixed_scales
+    from mde_tpu_torch.offline.layers import seeded
+
+    ds = CocoInstanceDataset(str(tree), str(ann))
+    sample = ds.train_sample(np.random.default_rng(SEED), 0, max_gt=100,
+                             scales=fixed_scales(*DET_SMALL_SCALE))
+    result = {}
+    uniform, draws = recorded_uniform("cpu")
+    for device in ("cpu", "cuda"):
+        model = seeded(lambda: CascadeMaskRCNN(COCO_CLASSES), SEED).to(device).train()
+        opt, sched = detector_optimizer(model, steps_per_epoch=COCO_FRAMES)
+        t0 = time.perf_counter()
+        losses = td.train_step(model, opt, sched, sample,
+                               uniform if device == "cpu" else replayed_uniform(draws, device),
+                               num_samples=DET_COMPARE_SAMPLES)
+        result[device] = ({k: float(v) for k, v in losses.items()}, bbox_bn_stats(model),
+                          time.perf_counter() - t0)
+        del model, opt
+    (l_cpu, s_cpu, t_cpu), (l_gpu, s_gpu, t_gpu) = result["cpu"], result["cuda"]
+    loss_err = max(abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu)
+    bn_err = max(max_rel(g, c) for g, c in zip(s_gpu, s_cpu))
+    print(f"train_detector [{card}]: one float32 step at {sample['image'].shape[0]}x"
+          f"{sample['image'].shape[1]}, {DET_COMPARE_SAMPLES} rois a stage, the same draws, card "
+          f"against CPU (TF32 off): losses {json.dumps({k: round(v, 6) for k, v in l_gpu.items()})}"
+          f", largest relative difference {loss_err:.3e} (tol {DET_LOSS_RTOL:g}); the bbox heads' "
+          f"updated BN stats {bn_err:.3e} (tol {DET_BN_TOL:g}); step {1e3 * t_gpu:.1f} ms on the "
+          f"card (first, cold), {t_cpu:.1f} s on the CPU")
+    check(loss_err <= DET_LOSS_RTOL and bn_err <= DET_BN_TOL,
+          "the detector's step on the card differs from the CPU")
+    torch.cuda.empty_cache()
+
+
+def detector_remat(tree, ann, card):
+    """Phase 11c: one bf16 step at the policy's largest scale with and
+    without use_checkpoint, the same draws: the losses and the peaks."""
+    from mde_tpu_torch.offline import train_detector as td
+    from mde_tpu_torch.offline.cascade_rcnn import CascadeMaskRCNN
+    from mde_tpu_torch.offline.coco_dataset import CocoInstanceDataset
+    from mde_tpu_torch.offline.detection_data import detector_optimizer, fixed_scales
+    from mde_tpu_torch.offline.layers import cast_at_use, seeded
+
+    ds = CocoInstanceDataset(str(tree), str(ann))
+    sample = ds.train_sample(np.random.default_rng(SEED), 0, max_gt=100,
+                             scales=fixed_scales(*DET_REMAT_SCALE))
+    uniform, draws = recorded_uniform("cuda")
+    result = {}
+    for remat in (True, False):
+        model = cast_at_use(seeded(lambda: CascadeMaskRCNN(COCO_CLASSES, use_checkpoint=remat),
+                                   SEED), torch.bfloat16).cuda().train()
+        opt, sched = detector_optimizer(model, steps_per_epoch=COCO_FRAMES)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = td.train_step(model, opt, sched, sample,
+                               uniform if remat else replayed_uniform(draws, "cuda"))
+        torch.cuda.synchronize()
+        result[remat] = ({k: float(v) for k, v in losses.items()},
+                         torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0)
+        del model, opt
+        torch.cuda.empty_cache()
+    (l_r, p_r, t_r), (l_n, p_n, t_n) = result[True], result[False]
+    err = max(abs(l_r[k] - l_n[k]) / max(abs(l_n[k]), 1e-30) for k in l_n)
+    print(f"train_detector [{card}]: one bf16 step at {sample['image'].shape[0]}x"
+          f"{sample['image'].shape[1]} with use_checkpoint against without, the same draws: "
+          f"losses' largest relative difference {err:.3e} (tol {DET_LOSS_RTOL:g}); peak above "
+          f"the model {p_r} against {p_n} bytes; {1e3 * t_r:.1f} against {1e3 * t_n:.1f} ms "
+          f"(first steps, cold)")
+    check(err <= DET_LOSS_RTOL, "use_checkpoint changes the detector's losses")
+    check(p_r < p_n, "use_checkpoint does not lower the detector's peak")
+
+
+def eval_detector_cli(tree, ann, ckpt, card):
+    """Phase 11d: eval_detector.main on the COCO tree with phase 11a's checkpoint."""
+    from mde_tpu_torch.offline import eval_detector as ed
+
+    clock = Clock()
+    clock.wrap(ed, "detect", "frame")
+    try:
+        t0 = time.perf_counter()
+        summary = ed.main(["--images", str(tree), "--annotations", str(ann), "--checkpoint",
+                           str(ckpt), "--num-classes", str(COCO_CLASSES), "--score-thr",
+                           str(OFFLINE_SCORE_THR)])
+        seconds = time.perf_counter() - t0
+    finally:
+        clock.restore()
+    frames = clock.times["frame"]
+    print(f"eval_detector [{card}]: {len(frames)} frames of {FRAME_HW[0]}x{FRAME_HW[1]} in "
+          f"{seconds:.1f} s (checkpoint load included), bf16, --score-thr {OFFLINE_SCORE_THR}: "
+          f"detect {statistics.median(frames[1:]):.3f} ms a frame after the first (first "
+          f"{frames[0]:.3f}); " + json.dumps(summary))
+    check(set(summary) == {"bbox_mAP", "bbox_mAP50", "segm_mAP", "segm_mAP50"},
+          f"eval_detector printed {sorted(summary)}")
+    check(all(np.isnan(v) or 0.0 <= v <= 1.0 for v in summary.values()),
+          f"eval_detector's metrics out of range: {summary}")
+
+
+def hrnet_training(card, profile_dir):
+    """Phase 11e: HRNetV2-W48 + C1 training steps at full width on the card,
+    and one step card against CPU."""
+    from mde_tpu_torch.offline.hrnet import HRNetV2C1
+    from mde_tpu_torch.offline.hrnet_train import build_semseg_optimizer, make_semseg_train_step
+    from mde_tpu_torch.offline.layers import seeded
+
+    def batch(hw, seed):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn((HRNET_TRAIN_BATCH, 3, *hw), generator=g)
+        labels = torch.randint(0, 150, (HRNET_TRAIN_BATCH, hw[0] // 4, hw[1] // 4), generator=g)
+        labels[:, 0], labels[:, -1], labels[:, :, 0], labels[:, :, -1] = -1, -1, -1, -1
+        return x, labels
+
+    torch.cuda.empty_cache()
+    model = seeded(HRNetV2C1, SEED).cuda()
+    opt, sched = build_semseg_optimizer(model)
+    step = make_semseg_train_step(model, opt, sched)
+    x, labels = (t.cuda() for t in batch(HRNET_TRAIN_HW, SEED))
+    times, losses = [], []
+    for i in range(DET_WARMUP + DET_TIMED):
+        if i == DET_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(x, labels)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    _, events, busy, wall, prof = profiled(lambda: step(x, labels))
+    write_profile(prof, profile_dir, "hrnet_step")
+    timed = times[DET_WARMUP:]
+    print(f"hrnet train [{card}]: HRNetV2-W48 + C1, 150 classes, float32 (TF32 off), batch "
+          f"{HRNET_TRAIN_BATCH} of {HRNET_TRAIN_HW[0]}x{HRNET_TRAIN_HW[1]}, SGD + poly, one fixed "
+          f"batch: step median {statistics.median(timed):.3f} ms (min {min(timed):.3f}, max "
+          f"{max(timed):.3f}) over {len(timed)}; peak {peak} bytes; losses "
+          f"{[round(v, 5) for v in losses]}; a profiled step: {events} device events, device "
+          f"busy {busy:.1f} of {wall:.1f} ms ({100 * busy / wall:.1f} %); most device time: "
+          f"{top_device_ops(prof)}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "HRNet's loss did not fall over its steps")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    x, labels = batch(HRNET_STEP_HW, SEED + 1)
+    out = {}
+    for device in ("cpu", "cuda"):
+        m = seeded(HRNetV2C1, SEED).to(device)
+        o, s = build_semseg_optimizer(m)
+        metrics = make_semseg_train_step(m, o, s)(x.to(device), labels.to(device))
+        out[device] = (float(metrics["loss"]), [b.detach().float().cpu() for n, b in
+                                                m.named_buffers() if "running_" in n])
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    bn_err = max(max_rel(g, c) for g, c in zip(out["cuda"][1], out["cpu"][1]))
+    print(f"hrnet train [{card}]: one step at {HRNET_STEP_HW[0]}x{HRNET_STEP_HW[1]}, card "
+          f"against CPU: loss {out['cuda'][0]:.6f} against {out['cpu'][0]:.6f} ({loss_err:.3e}, "
+          f"tol {HRNET_LOSS_RTOL:g}); {len(out['cpu'][1])} BN buffers, largest relative "
+          f"difference {bn_err:.3e} (tol {HRNET_BN_TOL:g})")
+    check(loss_err <= HRNET_LOSS_RTOL and bn_err <= HRNET_BN_TOL,
+          "HRNet's step on the card differs from the CPU")
+    torch.cuda.empty_cache()
+
+
+def eval_semseg_cli(root, card):
+    """Phase 11f: eval_semseg.main on an odgt of SEMSEG_FRAMES NYU frames with
+    seeded CSAIL-named checkpoints and --result-dir."""
+    from mde_tpu_torch.data.decode import read_png, write_png
+    from mde_tpu_torch.offline import eval_semseg as es
+    from mde_tpu_torch.offline.hrnet import HRNetV2C1, hrnet_multiscale_inference
+    from mde_tpu_torch.offline.layers import seeded
+
+    root.mkdir(parents=True)
+    model = seeded(HRNetV2C1, SEED)
+    torch.save(model.encoder.state_dict(), root / "encoder_epoch_30.pth")
+    torch.save(model.decoder.state_dict(), root / "decoder_epoch_30.pth")
+    yy, xx = np.mgrid[:FRAME_HW[0], :FRAME_HW[1]]
+    lines = []
+    for i in range(SEMSEG_FRAMES):
+        shutil.copyfile(CLASSROOM, root / f"frame_{i}.jpg")
+        write_png(root / f"frame_{i}.png", ((yy // 40 * 13 + xx // 40 * 7 + i) % 151)
+                  .astype(np.uint8))
+        lines.append(json.dumps({"fpath_img": f"frame_{i}.jpg", "fpath_segm": f"frame_{i}.png"}))
+    (root / "val.odgt").write_text("\n".join(lines) + "\n")
+    seen, preds = {}, []
+    real_build, real_segment = es.build_model, es.segment
+
+    def build(args, device):
+        seen["model"] = real_build(args, device)
+        return seen["model"]
+
+    def segment(m, img):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = real_segment(m, img)
+        preds.append((img, pred, (time.perf_counter() - t0) * 1e3))
+        return pred
+
+    es.build_model, es.segment = build, segment
+    try:
+        result = es.main(["--odgt", str(root / "val.odgt"), "--root", str(root), "--encoder-ckpt",
+                          str(root / "encoder_epoch_30.pth"), "--decoder-ckpt",
+                          str(root / "decoder_epoch_30.pth"), "--result-dir", str(root / "vis")])
+    finally:
+        es.build_model, es.segment = real_build, real_segment
+    device = next(seen["model"].parameters()).device
+    for img, pred, _ in preds:
+        with torch.inference_mode():
+            direct = hrnet_multiscale_inference(lambda x, s: seen["model"](x.to(device), s), img)
+        check(np.array_equal(direct, pred), "eval_semseg's prediction differs from a direct call")
+    grids = [read_png(root / "vis" / f"frame_{i}.png") for i in range(SEMSEG_FRAMES)]
+    check(all(g.shape == (FRAME_HW[0], 3 * FRAME_HW[1], 3) for g in grids),
+          f"eval_semseg's grids: {[g.shape for g in grids]}")
+    print(f"eval_semseg [{card}]: {SEMSEG_FRAMES} frames of {FRAME_HW[0]}x{FRAME_HW[1]}, bf16, "
+          f"five scales: segment {statistics.median(p[2] for p in preds[1:]):.3f} ms a frame "
+          f"after the first; each prediction equal to a direct hrnet_multiscale_inference call; "
+          f"mIoU {result['mIoU']:.4f}, accuracy {result['accuracy']:.2f}%; {len(grids)} RGB "
+          f"grids of {grids[0].shape}")
+    check(np.isfinite(result["mIoU"]) and 0 <= result["accuracy"] <= 100,
+          "eval_semseg's metrics are not finite")
+    del seen
+    torch.cuda.empty_cache()
+
+
+def offline_training(root, card, profile_dir):
+    """Phase 11: the offline training and evaluation of the cue generators,
+    seeded weights at full width; no port kernel lies on this path. With
+    --profile, the profiled detector and HRNet steps' tables go to DIR."""
+    t0 = time.perf_counter()
+    tree = root / "coco"
+    ann = coco_tree(tree)
+    reset_counts()
+    ckpt = train_detector_cli(tree, ann, root / "runs_detector", card, profile_dir)
+    detector_card_vs_cpu(tree, ann, card)
+    detector_remat(tree, ann, card)
+    eval_detector_cli(tree, ann, ckpt, card)
+    hrnet_training(card, profile_dir)
+    eval_semseg_cli(root / "semseg", card)
+    counts = read_counts()
+    print(f"offline training [{card}]: launches of the port's kernels: {counts} (no TPU kernel "
+          f"lies on this path); phase 11 in {time.perf_counter() - t0:.1f} s")
+    check(not any(counts.values()), f"offline training launched a port kernel: {counts}")
+
+
 def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2388,6 +2914,7 @@ def main(argv):
         add(remat(state_dict, gen, args.profile, train_ms, train_peak))
         pretrained_backbone(gen, root)
         add(offline(root, card))
+        offline_training(root, card, args.profile)
     print(f"chamfer_wide_kernel ({WIDE_BINS} bins, on no main path: every params file has 256 "
           f"bins): " + json.dumps(wide))
     print(f"launches over the main paths (the float32 head backward from the step "

@@ -12,8 +12,9 @@
 //
 // Decoding: written here, with no image library. The machines this runs on
 // need not have libjpeg or libpng; zlib is the one library linked.
-//   * JPEG: baseline and extended sequential Huffman, 8-bit, three components
-//     (YCbCr, or RGB by Adobe transform 0 or component ids 'R','G','B'),
+//   * JPEG: baseline and extended sequential Huffman, 8-bit, one component
+//     (grayscale) or three (YCbCr, or RGB by Adobe transform 0 or component
+//     ids 'R','G','B'),
 //     interleaved or not, with restart markers. Its arithmetic is libjpeg's
 //     as PIL runs it (libjpeg-turbo's defaults): the ISLOW integer IDCT of
 //     jidctint.c, h2v1 / h1v2 / h2v2 fancy upsampling of jdsample.c with the
@@ -21,9 +22,17 @@
 //     fixed-point YCbCr->RGB of jdcolor.c, so a frame decodes to PIL's bytes.
 //     Progressive, arithmetic-coded, lossless, 12-bit and other sampling
 //     ratios are refused with an error.
-//   * PNG: non-interlaced 8- or 16-bit grayscale (to uint16) and 8-bit RGB;
-//     the IDAT stream inflated by zlib, then unfiltered. Other kinds are
-//     refused with an error.
+//   * PNG: non-interlaced 8- or 16-bit grayscale (to uint16), 8-bit RGB,
+//     and 8-bit grey-alpha and RGBA (to RGB only); the IDAT stream inflated
+//     by zlib, then unfiltered. Other kinds are refused with an error.
+//   * To RGB (`mdeaug_decode_rgb`): every 8-bit kind above as PIL's
+//     `convert("RGB")` gives it: grey replicated, alpha dropped.
+//
+// Polygon fill (`mdeaug_fill_polygon`): PIL's `ImageDraw.polygon` with a fill
+// on an 8-bit image (Draw.c, ImagingDrawPolygon and polygon_generic): the
+// vertices cast to int, the edge list, and the float32
+// scanline with its corner rules, so a COCO polygon rasterises to PIL's
+// pixels.
 //
 // C ABI only. Every decoding entry returns 0 on success, or -1 with a
 // message written into the caller's `err` buffer.
@@ -484,8 +493,8 @@ void read_frame(Jpeg* j, const uint8_t* p, int len) {
   j->width = be16(p + 3);
   int n = p[5];
   if (j->height <= 0 || j->width <= 0) fail("JPEG: zero image size");
-  if (n != 3) fail("JPEG: only three-component images are supported, found " +
-                   std::to_string(n));
+  if (n != 1 && n != 3) fail("JPEG: only one- and three-component images are supported, found " +
+                             std::to_string(n));
   if (len < 6 + 3 * n) fail("JPEG: short SOF");
   j->comps.resize(n);
   for (int i = 0; i < n; ++i) {
@@ -752,8 +761,10 @@ void decode_jpeg(const char* path, uint8_t* out, int out_h, int out_w) {
   if (j.height != out_h || j.width != out_w) fail("JPEG: size differs from its header");
   for (const Component& c : j.comps)
     if (c.plane.empty()) fail("JPEG: a component has no scan");
-  bool rgb = j.adobe ? j.adobe_transform == 0
-                     : (j.comps[0].id == 'R' && j.comps[1].id == 'G' && j.comps[2].id == 'B');
+  const bool gray = j.comps.size() == 1;
+  bool rgb = !gray && (j.adobe ? j.adobe_transform == 0
+                               : (j.comps[0].id == 'R' && j.comps[1].id == 'G' &&
+                                  j.comps[2].id == 'B'));
 
   // jdcolor.c's fixed-point YCbCr -> RGB tables
   constexpr int kScale = 16;
@@ -772,12 +783,16 @@ void decode_jpeg(const char* path, uint8_t* out, int out_h, int out_w) {
   const int padded = j.mcus_w * j.max_h * 8 + 16;
   std::vector<uint8_t> rows(3 * (size_t)padded);
   for (int y = 0; y < out_h; ++y) {
-    for (int ci = 0; ci < 3; ++ci)
+    for (size_t ci = 0; ci < j.comps.size(); ++ci)
       upsample_row(j.comps[ci], j.max_h, j.max_v, y, rows.data() + ci * padded);
     const uint8_t* c0 = rows.data();
     const uint8_t* c1 = c0 + padded;
     const uint8_t* c2 = c1 + padded;
     uint8_t* o = out + (size_t)y * out_w * 3;
+    if (gray) {  // PIL's L -> RGB: the grey in every channel
+      for (int x = 0; x < out_w; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = c0[x];
+      continue;
+    }
     if (rgb) {
       for (int x = 0; x < out_w; ++x) {
         o[3 * x] = c0[x];
@@ -817,8 +832,13 @@ PngInfo png_header(const std::vector<uint8_t>& d) {
     info.channels = 1;
   } else if (info.color_type == 2 && info.bit_depth == 8) {
     info.channels = 3;
+  } else if (info.color_type == 4 && info.bit_depth == 8) {
+    info.channels = 2;
+  } else if (info.color_type == 6 && info.bit_depth == 8) {
+    info.channels = 4;
   } else {
-    fail("PNG: only 8/16-bit grayscale and 8-bit RGB are supported (bit depth " +
+    fail("PNG: only 8/16-bit grayscale and 8-bit RGB, grey-alpha and RGBA are supported "
+         "(bit depth " +
          std::to_string(info.bit_depth) + ", color type " + std::to_string(info.color_type) +
          ")");
   }
@@ -832,12 +852,8 @@ inline uint8_t paeth(int a, int b, int c) {
   return (uint8_t)(pb <= pc ? b : c);
 }
 
-// Gray -> uint16 (8-bit values widened), RGB -> uint8 (H, W, 3).
-void decode_png(const char* path, void* out, int out_h, int out_w, int out_channels) {
-  std::vector<uint8_t> d = read_file(path);
-  PngInfo info = png_header(d);
-  if (info.height != out_h || info.width != out_w || info.channels != out_channels)
-    fail("PNG: size or channels differ from its header");
+// The unfiltered rows of a PNG, (height, width * channels * bytes) bytes.
+std::vector<uint8_t> png_rows(const std::vector<uint8_t>& d, const PngInfo& info) {
   std::vector<uint8_t> z;
   size_t pos = 8;
   bool ended = false;
@@ -863,9 +879,12 @@ void decode_png(const char* path, void* out, int out_h, int out_w, int out_chann
   if (zrc != Z_OK || raw_len != raw.size())
     fail("PNG: zlib inflate failed (" + std::to_string(zrc) + ")");
 
-  std::vector<uint8_t> prev(rowbytes, 0), cur(rowbytes);
+  std::vector<uint8_t> rows(rowbytes * info.height);
+  std::vector<uint8_t> zero(rowbytes, 0);
   for (int y = 0; y < info.height; ++y) {
     const uint8_t* src = raw.data() + (rowbytes + 1) * y;
+    const uint8_t* prev = y ? rows.data() + rowbytes * (y - 1) : zero.data();
+    uint8_t* cur = rows.data() + rowbytes * y;
     int filter = src[0];
     ++src;
     for (size_t i = 0; i < rowbytes; ++i) {
@@ -883,14 +902,47 @@ void decode_png(const char* path, void* out, int out_h, int out_w, int out_chann
       }
       cur[i] = (uint8_t)x;
     }
-    if (info.channels == 3) {
-      std::memcpy((uint8_t*)out + (size_t)y * rowbytes, cur.data(), rowbytes);
-    } else {
-      uint16_t* o = (uint16_t*)out + (size_t)y * info.width;
-      for (int x = 0; x < info.width; ++x)
-        o[x] = bytes == 2 ? (uint16_t)(cur[2 * x] << 8 | cur[2 * x + 1]) : cur[x];
-    }
-    std::swap(prev, cur);
+  }
+  return rows;
+}
+
+// Gray -> uint16 (8-bit values widened), RGB -> uint8 (H, W, 3).
+void decode_png(const char* path, void* out, int out_h, int out_w, int out_channels) {
+  std::vector<uint8_t> d = read_file(path);
+  PngInfo info = png_header(d);
+  if (info.height != out_h || info.width != out_w || info.channels != out_channels ||
+      (out_channels != 1 && out_channels != 3))
+    fail("PNG: size or channels differ from its header");
+  std::vector<uint8_t> rows = png_rows(d, info);
+  if (info.channels == 3) {
+    std::memcpy(out, rows.data(), rows.size());
+    return;
+  }
+  const int bytes = info.bit_depth / 8;
+  uint16_t* o = (uint16_t*)out;
+  for (size_t i = 0, n = (size_t)info.width * info.height; i < n; ++i)
+    o[i] = bytes == 2 ? (uint16_t)(rows[2 * i] << 8 | rows[2 * i + 1]) : rows[i];
+}
+
+// Any 8-bit JPEG or PNG above to (h, w, 3) uint8 RGB, as PIL's convert("RGB"):
+// grey replicated, alpha dropped. A 16-bit grayscale PNG is refused.
+void decode_rgb(const char* path, uint8_t* out, int out_h, int out_w) {
+  std::vector<uint8_t> d = read_file(path);
+  if (!is_png(d)) {
+    decode_jpeg(path, out, out_h, out_w);
+    return;
+  }
+  PngInfo info = png_header(d);
+  if (info.height != out_h || info.width != out_w) fail("PNG: size differs from its header");
+  if (info.bit_depth != 8) fail("PNG: a 16-bit grayscale PNG has no RGB conversion");
+  std::vector<uint8_t> rows = png_rows(d, info);
+  const int ch = info.channels;
+  const int color = ch >= 3 ? 1 : 0;  // 1: R, G, B in the first three bytes
+  for (size_t i = 0, n = (size_t)out_w * out_h; i < n; ++i) {
+    const uint8_t* p = rows.data() + i * ch;
+    out[3 * i] = p[0];
+    out[3 * i + 1] = p[color];
+    out[3 * i + 2] = p[2 * color];
   }
 }
 
@@ -910,7 +962,7 @@ void image_info(const char* path, int32_t* info) {
   info[0] = kJpeg;
   info[1] = j.height;
   info[2] = j.width;
-  info[3] = 3;
+  info[3] = (int32_t)j.comps.size();
 }
 
 // An RGB frame, JPEG or 8-bit RGB PNG, into `out` (resized).
@@ -936,6 +988,164 @@ void decode_gray_png_file(const char* path, std::vector<uint16_t>* out, int* h, 
   *w = p.width;
   out->resize((size_t)(*h) * (*w));
   decode_png(path, out->data(), *h, *w, 1);
+}
+
+// ---------------------------------------------------------- polygon fill
+//
+// PIL's Draw.c (ImagingDrawPolygon with a fill, polygon_generic, hline8) on
+// one 8-bit (h, w) plane; the arithmetic is PIL's, float32 where it is float.
+
+struct Edge {
+  int d;
+  int x0, y0;
+  int xmin, ymin, xmax, ymax;
+  float dx;
+};
+
+void add_edge(Edge* e, int x0, int y0, int x1, int y1) {
+  if (x0 <= x1) {
+    e->xmin = x0, e->xmax = x1;
+  } else {
+    e->xmin = x1, e->xmax = x0;
+  }
+  if (y0 <= y1) {
+    e->ymin = y0, e->ymax = y1;
+  } else {
+    e->ymin = y1, e->ymax = y0;
+  }
+  if (y0 == y1) {
+    e->d = 0;
+    e->dx = 0.0f;
+  } else {
+    e->dx = ((float)(x1 - x0)) / (float)(y1 - y0);
+    e->d = y0 == e->ymin ? 1 : -1;
+  }
+  e->x0 = x0;
+  e->y0 = y0;
+}
+
+inline int round_up(float f) {  // Draw.c ROUND_UP, the float sum as in C
+  return (int)(f >= 0.0 ? std::floor((double)(float)(f + 0.5f))
+                        : -std::floor((double)(float)(std::fabs(f) + 0.5f)));
+}
+
+inline int round_down(float f) {  // Draw.c ROUND_DOWN
+  return (int)(f >= 0.0 ? std::ceil((double)(float)(f - 0.5f))
+                        : -std::ceil((double)(float)(std::fabs(f) - 0.5f)));
+}
+
+void hline(uint8_t* im, int h, int w, int x0, int y0, int x1) {
+  if (y0 < 0 || y0 >= h) return;
+  if (x0 < 0) {
+    x0 = 0;
+  } else if (x0 >= w) {
+    return;
+  }
+  if (x1 < 0) {
+    return;
+  } else if (x1 >= w) {
+    x1 = w - 1;
+  }
+  if (x0 <= x1) std::memset(im + (size_t)y0 * w + x0, 1, x1 - x0 + 1);
+}
+
+inline float edge_x(const Edge* e, int y) { return (float)(y - e->y0) * e->dx + (float)e->x0; }
+
+void polygon_fill(uint8_t* im, int h, int w, const std::vector<Edge>& e) {
+  const int n = (int)e.size();
+  if (n <= 0) return;
+  std::vector<const Edge*> table;
+  int ymin = h - 1, ymax = 0;
+  for (int i = 0; i < n; ++i) {
+    ymin = std::min(ymin, e[i].ymin);
+    ymax = std::max(ymax, e[i].ymax);
+    if (e[i].ymin == e[i].ymax) {
+      hline(im, h, w, e[i].xmin, e[i].ymin, e[i].xmax);
+      continue;
+    }
+    table.push_back(&e[i]);
+  }
+  ymin = std::max(ymin, 0);
+  ymax = std::min(ymax, h);
+  const int count = (int)table.size();
+  std::vector<float> xx(2 * (size_t)std::max(count, 1));
+  for (; ymin <= ymax; ymin++) {
+    int j = 0;
+    for (int i = 0; i < count; i++) {
+      const Edge* current = table[i];
+      if (ymin < current->ymin || ymin > current->ymax) continue;
+      xx[j++] = edge_x(current, ymin);
+      if (ymin == current->ymax && ymin < ymax) {
+        // needed to draw consistent polygons
+        xx[j] = xx[j - 1];
+        j++;
+      } else if (current->dx != 0 && j % 2 == 1 && std::roundf(xx[j - 1]) == xx[j - 1]) {
+        // connect discontiguous corners: another edge on this row, sloped the
+        // same way, through the same point
+        for (int k = 0; k < count; k++) {
+          const Edge* other = table[k];
+          if (k == i || (current->dx > 0 && other->dx <= 0) ||
+              (current->dx < 0 && other->dx >= 0))
+            continue;
+          // a corner: both edges end on this row, at the same point
+          if ((ymin != current->ymin && ymin != current->ymax) ||
+              (ymin != other->ymin && ymin != other->ymax) || xx[j - 1] != edge_x(other, ymin))
+            continue;
+          // the edges' points on the next row, or on the previous one at the
+          // current edge's last row
+          int offset = ymin == current->ymax ? -1 : 1;
+          if (ymin + offset < other->ymin || ymin + offset > other->ymax) continue;
+          float adjacent = edge_x(current, ymin + offset);
+          float adjacent_other = edge_x(other, ymin + offset);
+          if (xx[j - 1] > adjacent + 1 && xx[j - 1] > adjacent_other + 1) {
+            xx[j - 1] = std::roundf((float)std::fmax(adjacent, adjacent_other)) + 1;
+          } else if (xx[j - 1] < adjacent - 1 && xx[j - 1] < adjacent_other - 1) {
+            xx[j - 1] = std::roundf((float)std::fmin(adjacent, adjacent_other)) - 1;
+          }
+          break;
+        }
+      }
+    }
+    std::sort(xx.begin(), xx.begin() + j);
+    for (int i = 1; i < j; i += 2) {
+      int x_start = round_up(xx[i - 1]);
+      int x_end = round_down(xx[i]);
+      if (x_end < x_start) continue;
+      hline(im, h, w, x_start, ymin, x_end);
+    }
+  }
+}
+
+// ImagingDrawPolygon with a fill: integer vertices (the coordinates cast to
+// int, toward zero, as _imaging.c's _draw_polygon), runs of horizontal edges merged, the polygon closed.
+void fill_polygon(uint8_t* im, int h, int w, const double* xy_in, int count) {
+  if (count <= 0) return;
+  std::vector<int> xy(2 * (size_t)count);
+  for (int i = 0; i < 2 * count; ++i) xy[i] = (int)xy_in[i];
+  std::vector<Edge> e;
+  e.reserve(count);
+  int i = 0;
+  for (; i < count - 1; i++) {
+    int x0 = xy[i * 2], y0 = xy[i * 2 + 1], x1 = xy[i * 2 + 2], y1 = xy[i * 2 + 3];
+    if (y0 == y1 && i != 0 && y0 == xy[i * 2 - 1]) {
+      // a horizontal line right after another horizontal line
+      Edge& last = e.back();
+      if (x1 > x0 && x0 > xy[i * 2 - 2]) {  // both increasing in x
+        last.xmax = x1;
+        continue;
+      } else if (x1 < x0 && x0 < xy[i * 2 - 2]) {  // both decreasing in x
+        last.xmin = x1;
+        continue;
+      }
+    }
+    e.emplace_back();
+    add_edge(&e.back(), x0, y0, x1, y1);
+  }
+  if (xy[i * 2] != xy[0] || xy[i * 2 + 1] != xy[1]) {
+    e.emplace_back();
+    add_edge(&e.back(), xy[i * 2], xy[i * 2 + 1], xy[0], xy[1]);
+  }
+  polygon_fill(im, h, w, e);
 }
 
 int report(const DecodeError& e, char* err, int errlen) {
@@ -982,7 +1192,7 @@ int mdeaug_image_info(const char* path, int32_t* info, char* err, int errlen) {
   }
 }
 
-// A three-component JPEG to (h, w, 3) uint8 RGB.
+// A one- or three-component JPEG to (h, w, 3) uint8 RGB.
 int mdeaug_decode_jpeg(const char* path, uint8_t* out, int h, int w, char* err, int errlen) {
   try {
     decode_jpeg(path, out, h, w);
@@ -1002,6 +1212,22 @@ int mdeaug_decode_png(const char* path, void* out, int h, int w, int channels, c
   } catch (const DecodeError& e) {
     return report(e, err, errlen);
   }
+}
+
+// Any 8-bit JPEG or PNG kind to (h, w, 3) uint8 RGB, as PIL's convert("RGB").
+int mdeaug_decode_rgb(const char* path, uint8_t* out, int h, int w, char* err, int errlen) {
+  try {
+    decode_rgb(path, out, h, w);
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// Fills one polygon of `count` (x, y) vertices into the (h, w) plane `im`
+// with 1, as PIL's ImageDraw.polygon(xy, fill=1) on an "L" image.
+void mdeaug_fill_polygon(uint8_t* im, int h, int w, const double* xy, int count) {
+  fill_polygon(im, h, w, xy, count);
 }
 
 // Fused loader: file read + JPEG/PNG decode + pre-crop + rotate/crop/flip/

@@ -61,6 +61,9 @@ def library() -> ctypes.CDLL:
                 "mdeaug_decode_jpeg": ([cstr, ctypes.c_void_p, cint, cint, err, cint], cint),
                 "mdeaug_decode_png": ([cstr, ctypes.c_void_p, cint, cint, cint, err, cint],
                                       cint),
+                "mdeaug_decode_rgb": ([cstr, ctypes.c_void_p, cint, cint, err, cint], cint),
+                "mdeaug_fill_polygon": ([ctypes.c_void_p, cint, cint, ctypes.c_void_p, cint],
+                                        None),
                 "mdeaug_load_augment_batch": (
                     [cint, ctypes.POINTER(cstr), ctypes.POINTER(cstr), ptrs(ctypes.c_int32),
                      ptrs(ctypes.c_int32), ptrs(ctypes.c_int32), ctypes.POINTER(CropRect), cint,

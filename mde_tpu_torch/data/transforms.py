@@ -168,3 +168,22 @@ def resize_bilinear_pil(img_u8: np.ndarray, size) -> np.ndarray:
     if out_h != h:
         out = _pil_pass(out, v_index, v_k, axis=0)
     return out.copy() if out is img_u8 else out
+
+
+def _pil_nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Pillow's NEAREST resize along one axis (`ImagingScaleAffine`): the
+    source coordinate starts at half a step and adds the step in float64 for
+    each output sample (a running sum, not a product), truncated to int."""
+    step = in_size / out_size
+    coords = np.add.accumulate(np.concatenate([[step * 0.5], np.full(out_size - 1, step)]))
+    return np.minimum(coords.astype(np.int64), in_size - 1)
+
+
+def resize_nearest_pil(img: np.ndarray, size) -> np.ndarray:
+    """`PIL.Image.fromarray(img).resize(size, Image.NEAREST)` for an (H, W)
+    or (H, W, C) array, bit for bit; `size` is (width, height)."""
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (out_w, out_h) == (w, h):
+        return img.copy()
+    return img[_pil_nearest_index(h, out_h)][:, _pil_nearest_index(w, out_w)]

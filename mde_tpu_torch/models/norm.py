@@ -64,7 +64,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not update:
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
                                 self.weight, self.bias, True, self.momentum, self.eps)
-        self.num_batches_tracked.add_(1)
+        if self.num_batches_tracked is not None:
+            self.num_batches_tracked.add_(1)
         n = x.numel() // x.shape[1]
         # torch updates (and autograd keeps) a copy; the buffer gets flax's value
         torch_var = self.running_var.clone()
@@ -92,7 +93,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = y * self.weight.view(shape) + self.bias.view(shape)
         if update:
             with torch.no_grad():
-                self.num_batches_tracked.add_(1)
+                if self.num_batches_tracked is not None:
+                    self.num_batches_tracked.add_(1)
                 keep = 1.0 - self.momentum
                 self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
                 self.running_var.copy_(keep * self.running_var + self.momentum * var)

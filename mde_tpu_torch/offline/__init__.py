@@ -1,4 +1,5 @@
-"""Offline cue generation, the port of `mde_tpu/offline/` (inference):
+"""Offline cue generation, the port of `mde_tpu/offline/`: inference,
+training and evaluation.
 
   hrnet.py            HRNetV2-W48 + C1 (CSAIL names), `load_hrnet_c1`, the
                       five-scale test protocol
@@ -13,6 +14,14 @@
                       the CLIs (`python -m mde_tpu_torch.offline.generate_*`)
                       that write the cue side files the cue configurations
                       train on
+  detection_train.py  the detector's assigner, sampler, coders, losses and
+                      mask targets (`CascadeMaskRCNN.compute_losses`)
+  detection_data.py   AutoAugment, GT padding, the AdamW recipe
+  coco_dataset.py, detection_eval.py
+                      the COCO instance loader and the mAP evaluator
+  hrnet_train.py      HRNet's training step (NLL with ignore, SGD + poly)
+  train_detector.py, eval_detector.py, eval_semseg.py
+                      the training and evaluation CLIs
 
 No TPU kernel lies on this path: the JAX package runs it as XLA code, and
 the port as plain PyTorch (cuDNN and cuBLAS for the convolutions and

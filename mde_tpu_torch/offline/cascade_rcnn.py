@@ -1,9 +1,12 @@
-"""Cascade Mask R-CNN inference, the port of `mde_tpu/offline/cascade_rcnn.py`
-(:39-172, :245-348): Swin-B -> FPN(5) -> RPN (3 anchors a location, top
+"""Cascade Mask R-CNN, the port of `mde_tpu/offline/cascade_rcnn.py` (:39-348):
+inference, Swin-B -> FPN(5) -> RPN (3 anchors a location, top
 1,000 a level, NMS 0.7, 1,000 proposals) -> 3 cascade ConvFC bbox heads
 (class scores averaged over the stages, boxes refined by the argmax class's
 deltas) -> class-aware NMS (score threshold, IoU 0.5, 100 detections) -> 3 FCN
-mask heads (28 x 28 sigmoid masks averaged over the stages).
+mask heads (28 x 28 sigmoid masks averaged over the stages); and
+`compute_losses`, the multi-stage training loss of one image (the RPN's,
+then each stage's classification, GIoU and mask losses on its sampled rois,
+the proposals and each stage's refined rois carrying no gradient).
 
 Names are mmdet's (`backbone.*`, `neck.*`, `rpn_head.{rpn_conv, rpn_cls,
 rpn_reg}`, `roi_head.bbox_head.{i}.{shared_convs.{j}.{conv, bn}, shared_fcs.0,
@@ -32,7 +35,7 @@ from ..ops.resize import _linear_weights_half_pixel
 from .detection_ops import (batched_nms_fixed, delta2bbox, extract_roi_features,
                             grid_anchors, top_k)
 from .fpn import FPN
-from .layers import BatchNorm2d, load_checked, to_compute_dtype
+from .layers import BatchNorm2d, compute_dtype, load_checked, to_compute_dtype
 from .swin import SwinTransformer, relative_position_index, resize_rel_pos_table
 
 STAGE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1),
@@ -90,7 +93,7 @@ class ConvFCBBoxHead(nn.Module):
         self.fc_reg = nn.Linear(1024, num_classes * 4)
 
     def forward(self, roi_feats):
-        y = roi_feats.to(self.fc_cls.weight.dtype)
+        y = roi_feats.to(compute_dtype(self.fc_cls))
         for conv in self.shared_convs:
             y = conv(y)
         y = F.relu(self.shared_fcs[0](y.flatten(1)))
@@ -107,7 +110,7 @@ class FCNMaskHead(nn.Module):
         self.conv_logits = nn.Conv2d(channels, num_classes, 1)
 
     def forward(self, roi_feats):
-        y = roi_feats.to(self.conv_logits.weight.dtype)
+        y = roi_feats.to(compute_dtype(self.conv_logits))
         for conv in self.convs:
             y = conv(y)
         return self.conv_logits(F.relu(self.upsample(y))).float()
@@ -123,13 +126,15 @@ class CascadeRoIHead(nn.Module):
 class CascadeMaskRCNN(nn.Module):
     """The detector; `infer` returns the fixed-size detections of one frame."""
 
-    def __init__(self, num_classes=100, score_thr=0.05, depths=(2, 2, 18, 2)):
+    def __init__(self, num_classes=100, score_thr=0.05, depths=(2, 2, 18, 2),
+                 use_checkpoint=False):
         super().__init__()
         self.num_classes = num_classes
         # test_cfg.rcnn score threshold (mmdet's 0.05); random-init runs lower
         # it: an untrained head's softmax sits near 1/(C+1)
         self.score_thr = score_thr
-        self.backbone = SwinTransformer(depths=depths)
+        # use_checkpoint recomputes each Swin block in the backward (training memory)
+        self.backbone = SwinTransformer(depths=depths, use_checkpoint=use_checkpoint)
         self.neck = FPN()
         self.rpn_head = RPNHead()
         self.roi_head = CascadeRoIHead(num_classes)
@@ -140,17 +145,22 @@ class CascadeMaskRCNN(nn.Module):
         return self.neck(self.backbone(image))
 
     def anchors(self, fh, fw, level, device):
+        """One level's anchors on `device`, made once (outside inference mode,
+        so that training after inference can use them)."""
         key = (fh, fw, level, str(device))
         if key not in self._anchors:
-            self._anchors[key] = torch.from_numpy(
-                grid_anchors(fh, fw, FPN_STRIDES[level])).to(device)
+            with torch.inference_mode(False):
+                self._anchors[key] = torch.from_numpy(
+                    grid_anchors(fh, fw, FPN_STRIDES[level])).to(device)
         return self._anchors[key]
 
-    def proposals(self, feats, img_hw):
-        """RPN head, top 1,000 a level and level-aware NMS (test_cfg.rpn: nms_pre
-        1000, IoU 0.7, max 1000) -> (boxes (1000, 4), valid (1000,))."""
+    def proposals(self, feats, img_hw, rpn_outs=None):
+        """RPN head (unless its outputs are given), top 1,000 a level and
+        level-aware NMS (test_cfg.rpn: nms_pre 1000, IoU 0.7, max 1000) ->
+        (boxes (1000, 4), valid (1000,))."""
         all_boxes, all_scores, all_ids = [], [], []
-        for lvl, ((cls, reg), f) in enumerate(zip(self.rpn_head(feats), feats)):
+        rpn_outs = self.rpn_head(feats) if rpn_outs is None else rpn_outs
+        for lvl, ((cls, reg), f) in enumerate(zip(rpn_outs, feats)):
             fh, fw = f.shape[-2:]
             scores = torch.sigmoid(cls.permute(0, 2, 3, 1).reshape(-1).float())
             deltas = reg.permute(0, 2, 3, 1).reshape(-1, 4).float()
@@ -216,11 +226,63 @@ class CascadeMaskRCNN(nn.Module):
         return {"boxes": boxes, "scores": scores, "labels": labels, "valid": valid,
                 "masks28": self.masks(feats, boxes, labels)}
 
+    def compute_losses(self, image, gt_boxes, gt_labels, gt_valid, gt_masks, uniform, img_hw,
+                       num_samples: int = 512):
+        """Single-image multi-stage training losses (mmdet CascadeRoIHead
+        forward_train; the reference's train_cfg), `mde_tpu/offline/
+        cascade_rcnn.py:174-243`. The module is in training mode, so the bbox
+        heads' BatchNorms take the stats of the sampled rois.
+
+        image (1, 3, H, W); gt_boxes (G, 4), gt_labels (G,), gt_valid (G,)
+        padded to a static G; gt_masks (G, H', W') uint8 or float, H' <= H and
+        W' <= W; `uniform(n)` gives the sampler's draws
+        (`detection_train.py`). Returns a dict of scalar float32 losses and
+        their sum, "total"."""
+        from .detection_train import (STAGE_LOSS_WEIGHTS, STAGE_POS_THR, mask_loss,
+                                      mask_targets, rcnn_stage_loss, rcnn_stage_targets,
+                                      rpn_loss)
+
+        feats = self.features(image)
+        rpn_outs = self.rpn_head(feats)
+        dev = image.device
+        anchors = torch.cat([self.anchors(f.shape[-2], f.shape[-1], lvl, dev)
+                             for lvl, f in enumerate(feats)])
+        cls_flat = torch.cat([c.permute(0, 2, 3, 1).reshape(-1) for c, _ in rpn_outs]).float()
+        reg_flat = torch.cat([r.permute(0, 2, 3, 1).reshape(-1, 4) for _, r in rpn_outs]).float()
+        rpn_cls, rpn_reg = rpn_loss(anchors, cls_flat, reg_flat, gt_boxes, gt_labels, gt_valid,
+                                    uniform, img_hw)
+        losses = {"rpn_cls": rpn_cls, "rpn_reg": rpn_reg}
+        # no gradient through the proposal chain
+        rois = self.proposals(feats, img_hw, rpn_outs)[0].detach()
+        c = self.num_classes
+        for i, (head, mask_head) in enumerate(zip(self.roi_head.bbox_head,
+                                                  self.roi_head.mask_head)):
+            tgt = rcnn_stage_targets(uniform, rois, gt_boxes, gt_labels, gt_valid,
+                                     STAGE_POS_THR[i], c, num_samples, add_gt=True)
+            cls_score, bbox_pred = head(extract_roi_features(feats[:4], tgt["rois"], 7))
+            deltas = bbox_pred.reshape(-1, c, 4)
+            arange = torch.arange(deltas.shape[0], device=dev)
+            # the target class's deltas, decoded for the GIoU loss
+            decoded = delta2bbox(tgt["rois"], deltas[arange, tgt["labels"].clamp(max=c - 1)],
+                                 stds=STAGE_STDS[i], max_shape=img_hw)
+            cls_l, reg_l = rcnn_stage_loss(cls_score, decoded, tgt, c)
+            w = STAGE_LOSS_WEIGHTS[i]
+            losses[f"s{i}_cls"] = w * cls_l
+            losses[f"s{i}_reg"] = w * reg_l
+            m_logits = mask_head(extract_roi_features(feats[:4], tgt["rois"], 14))
+            losses[f"s{i}_mask"] = w * mask_loss(m_logits, tgt, mask_targets(gt_masks, tgt))
+            # the next stage's rois: refined by the predicted class's deltas
+            best = torch.argmax(cls_score[:, :-1], dim=-1)
+            rois = delta2bbox(tgt["rois"], deltas[arange, best], stds=STAGE_STDS[i],
+                              max_shape=img_hw).detach()
+        losses["total"] = sum(losses.values())
+        return losses
+
 
 def load_detector(ckpt_path: str, window_size=None, dtype=torch.float32, num_classes=None,
                   score_thr=0.05, depths=(2, 2, 18, 2)) -> CascadeMaskRCNN:
     """An mmdet checkpoint (`{"state_dict": ...}`) into CascadeMaskRCNN on the
-    CPU. A missing or unexpected key raises, named. The checkpoint's
+    CPU, in eval mode. A missing or unexpected key raises, named. The checkpoint's
     `relative_position_index` buffers must equal the index this model builds;
     with `window_size`, position-bias tables of another window are resized
     bicubically first (the fork's loader)."""
@@ -241,7 +303,7 @@ def load_detector(ckpt_path: str, window_size=None, dtype=torch.float32, num_cla
             raise ValueError(f"{ckpt_path}: {k} is not the index of window "
                              f"{model.backbone.window_size}")
     load_checked(model, sd, ckpt_path)
-    return to_compute_dtype(model, dtype)
+    return to_compute_dtype(model, dtype).eval()
 
 
 # ------------------------------------------------------------------ host side

@@ -20,7 +20,8 @@ results are copied out.
   accumulates the taps one sample at a time, so 1,000 rois of 7 x 7 bins
   and 256 channels hold ~50 MB a tap instead of the (R, P, S, P, S, C)
   lattice. Adds run in a fixed order, so the card and the CPU give the same
-  bits.
+  bits. In training the gathers' backward adds into the levels with
+  float32 atomics: the gradient's sums run in no fixed order.
 """
 
 import numpy as np
@@ -152,6 +153,11 @@ def _roi_align_flat(flat, offset, height, width, scale, rois, p: int, s: int):
     tensors (int64, int64, int64, float32). Returns (R, C, p, p) float32."""
     r = rois.shape[0]
     c = flat.shape[1]
+    # training gathers from a float32 copy: the gather's backward is then a
+    # float32 index_add (atomic adds), where an accumulating index_put of
+    # bf16 sorts its indices first (most of a detector step's device time
+    # on an H100); the values gathered are the same
+    src = flat.float() if flat.requires_grad else flat
     x1 = rois[:, 0] * scale - 0.5
     y1 = rois[:, 1] * scale - 0.5
     x2 = rois[:, 2] * scale - 0.5
@@ -178,7 +184,8 @@ def _roi_align_flat(flat, offset, height, width, scale, rois, p: int, s: int):
             xl, xh = x_lo[:, None, :], x_hi[:, None, :]
 
             def tap(index, weight):
-                return flat[index.reshape(-1)].float().reshape(r, p, p, c) * weight[..., None]
+                rows = src.index_select(0, index.reshape(-1)).float()
+                return rows.reshape(r, p, p, c) * weight[..., None]
 
             val = (tap(row_lo + xl, a * cx) + tap(row_lo + xh, a * dx)
                    + tap(row_hi + xl, b * cx) + tap(row_hi + xh, b * dx))

@@ -6,6 +6,7 @@ P5 (`x[:, :, ::2, ::2]`); num_outs 5. Names are mmdet's
 import torch.nn as nn
 
 from ..ops.resize import resize_nearest
+from .layers import compute_dtype
 
 
 class _ConvModule(nn.Module):
@@ -28,7 +29,7 @@ class FPN(nn.Module):
                                        for _ in in_channels)
 
     def forward(self, inputs):
-        dtype = self.lateral_convs[0].conv.weight.dtype
+        dtype = compute_dtype(self.lateral_convs[0].conv)
         laterals = [conv(x.to(dtype)) for conv, x in zip(self.lateral_convs, inputs)]
         for i in range(len(laterals) - 1, 0, -1):
             laterals[i - 1] = laterals[i - 1] + resize_nearest(laterals[i],

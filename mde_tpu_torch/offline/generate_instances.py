@@ -46,11 +46,11 @@ STD = np.array([58.395, 57.12, 57.375], np.float32)
 MAX_LONG, MAX_SHORT = 1333, 800
 
 
-def preprocess(img_u8: np.ndarray):
+def preprocess(img_u8: np.ndarray, max_long: int = MAX_LONG, max_short: int = MAX_SHORT):
     """Keep-ratio resize + normalise + pad to /32. Returns (padded (ph, pw, 3)
     float32, (sx, sy), resized (th, tw))."""
     h, w = img_u8.shape[:2]
-    scale = min(MAX_LONG / max(h, w), MAX_SHORT / min(h, w))
+    scale = min(max_long / max(h, w), max_short / min(h, w))
     th, tw = int(h * scale + 0.5), int(w * scale + 0.5)
     x = (resize_bilinear_pil(img_u8, (tw, th)).astype(np.float32) - MEAN) / STD
     out = np.zeros((((th + 31) // 32) * 32, ((tw + 31) // 32) * 32, 3), np.float32)
@@ -95,10 +95,11 @@ def build_detector(args, device) -> CascadeMaskRCNN:
     return model.to(device).eval()
 
 
-def detect(model: CascadeMaskRCNN, img_u8: np.ndarray) -> dict:
+def detect(model: CascadeMaskRCNN, img_u8: np.ndarray, max_long: int = MAX_LONG,
+           max_short: int = MAX_SHORT) -> dict:
     """One frame's detections as numpy arrays, boxes in the frame's pixels."""
     device = next(model.parameters()).device
-    x, (sx, sy), (th, tw) = preprocess(img_u8)
+    x, (sx, sy), (th, tw) = preprocess(img_u8, max_long, max_short)
     with torch.inference_mode():
         det = model.infer(torch.from_numpy(x).permute(2, 0, 1)[None].to(device), (th, tw))
         det = {k: v.cpu().numpy() for k, v in det.items()}

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..data.transforms import normalize_image, resize_bilinear_pil
 from ..ops.resize import resize_bilinear_half_pixel
-from .layers import BatchNorm2d, load_checked, to_compute_dtype
+from .layers import BatchNorm2d, compute_dtype, load_checked, to_compute_dtype
 
 _STAGE_CFG = {
     # stage: (num_modules, branch_channels, blocks_per_branch)
@@ -179,7 +179,7 @@ class HRNetV2C1(nn.Module):
 
     @property
     def dtype(self):
-        return self.decoder.conv_last.weight.dtype
+        return compute_dtype(self.decoder.conv_last)
 
     def forward(self, x, seg_size=None):
         y = self.decoder(self.encoder(x.to(self.dtype))).float()
@@ -190,14 +190,14 @@ class HRNetV2C1(nn.Module):
 
 def load_hrnet_c1(encoder_path: str, decoder_path: str, dtype=torch.float32) -> HRNetV2C1:
     """A CSAIL encoder/decoder pair (`encoder_epoch_30.pth`,
-    `decoder_epoch_30.pth`: plain state_dicts) into HRNetV2C1 on the CPU; a
-    missing or unexpected key raises, named."""
+    `decoder_epoch_30.pth`: plain state_dicts) into HRNetV2C1 on the CPU, in
+    eval mode; a missing or unexpected key raises, named."""
     with torch.device("meta"):  # no initialisation: every tensor comes from the files
         model = HRNetV2C1()
     for part, path in ((model.encoder, encoder_path), (model.decoder, decoder_path)):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         load_checked(part, sd, path)
-    return to_compute_dtype(model, dtype)
+    return to_compute_dtype(model, dtype).eval()
 
 
 # --------------------------------------------------------------- inference

@@ -1,6 +1,6 @@
-"""What the offline networks share: inference-only norms that compute in
-float32 and cast back, the compute-dtype switch, seeded initialisation
-and the checked state_dict load.
+"""What the offline networks share: norms that compute in float32 and cast
+back, the two compute-dtype switches, seeded initialisation and the checked
+state_dict load.
 
 The JAX package builds these networks with `dtype=bfloat16` and float32
 norms (`nn.BatchNorm(dtype=float32)` / `nn.LayerNorm(dtype=float32)`,
@@ -11,34 +11,50 @@ even as flax's cast at use), the norms keep float32 parameters, and the
 input of each norm goes to float32 and its output back to the input's dtype.
 Autocast would not give these casts: it runs `batch_norm` in the input's
 dtype and returns `layer_norm` in float32.
+
+Training keeps float32 weights under the optimizer: `cast_at_use` makes
+each convolution and linear layer cast its weight, bias and input to the
+compute dtype at every call (flax's `dtype=bfloat16` over float32 params,
+`scripts/train_detector.py:75-76`), so the gradients reach float32 masters.
+In training mode `BatchNorm2d` normalises with the batch statistics and
+moves its running stats by flax's rule (`models/norm.py`: momentum 0.9 in
+flax's terms, the biased batch variance), in float32.
 """
 
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..models import norm
+
 # keys a published checkpoint holds that carry no weight of these networks
 IGNORED_KEYS = ("num_batches_tracked",)
 
 
-class BatchNorm2d(nn.Module):
-    """Inference BatchNorm with torch's state_dict names (weight, bias,
-    running_mean, running_var), in float32."""
+def _at_least_f32(x):
+    """bf16 and float16 to float32; float32 and float64 as they are."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
+class BatchNorm2d(norm.BatchNorm2d):
+    """`models/norm.py`'s BatchNorm (flax's running-stat update in training)
+    on a float32 copy of the input, cast back to its dtype. The state_dict
+    holds weight, bias, running_mean and running_var: no batch counter, which
+    flax does not keep (a file's `num_batches_tracked` is dropped)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+        super().__init__(channels, eps=eps, momentum=0.1)
+        self.register_buffer("num_batches_tracked", None)
 
     def forward(self, x):
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, False, 0.0, self.eps)
-        return y.to(x.dtype)
+        return super().forward(_at_least_f32(x)).to(x.dtype)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        nn.Module._load_from_state_dict(self, state_dict, prefix, *args)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -49,7 +65,7 @@ class LayerNorm(nn.LayerNorm):
         super().__init__(channels, eps=eps)
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+        return F.layer_norm(_at_least_f32(x), self.normalized_shape, self.weight, self.bias,
                             self.eps).to(x.dtype)
 
 
@@ -63,6 +79,35 @@ def to_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
         if isinstance(m, _WEIGHTED):
             m.to(dtype)
     return module
+
+
+def _cast_forward(m: nn.Module, x):
+    dtype = m.compute_dtype
+    w = m.weight.to(dtype)
+    b = None if m.bias is None else m.bias.to(dtype)
+    x = x.to(dtype)
+    if isinstance(m, nn.Linear):
+        return F.linear(x, w, b)
+    if isinstance(m, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, w, b, m.stride, m.padding, m.output_padding, m.groups,
+                                  m.dilation)
+    return m._conv_forward(x, w, b)
+
+
+def cast_at_use(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every convolution and linear layer of `module` compute in `dtype`
+    from its float32 weights, cast at each call with its input; the weights
+    stay float32 for the optimizer."""
+    for m in module.modules():
+        if isinstance(m, _WEIGHTED):
+            m.compute_dtype = dtype
+            m.forward = functools.partial(_cast_forward, m)
+    return module
+
+
+def compute_dtype(layer: nn.Module) -> torch.dtype:
+    """The dtype a convolution or linear layer computes in."""
+    return getattr(layer, "compute_dtype", layer.weight.dtype)
 
 
 def _fan_in(m: nn.Module) -> int:
@@ -122,10 +167,11 @@ def seed_(module: nn.Module, seed: int) -> nn.Module:
 
 def seeded(factory, seed: int) -> nn.Module:
     """`factory()` built on the meta device (no default initialisation),
-    then materialised on the CPU by `seed_`."""
+    then materialised on the CPU by `seed_`, in eval mode as a loaded
+    network is (training calls `.train()`)."""
     with torch.device("meta"):
         module = factory()
-    return seed_(module.to_empty(device="cpu"), seed)
+    return seed_(module.to_empty(device="cpu"), seed).eval()
 
 
 def load_checked(module: nn.Module, state_dict: dict, what: str) -> nn.Module:

@@ -24,7 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import LayerNorm
+from torch.utils.checkpoint import checkpoint
+
+from .layers import LayerNorm, compute_dtype
 
 
 def window_partition(x, ws: int):
@@ -55,8 +57,11 @@ def relative_position_index(ws: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _index_on(ws: int, device: str) -> torch.Tensor:
-    """The flat relative-position index of window `ws`, on `device`, once."""
-    return torch.from_numpy(relative_position_index(ws).reshape(-1)).to(device)
+    """The flat relative-position index of window `ws`, on `device`, once;
+    a normal tensor even when first asked for under inference mode, so a
+    later training step can save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(relative_position_index(ws).reshape(-1)).to(device)
 
 
 def shift_attention_mask(hp: int, wp: int, ws: int, shift: int, device) -> torch.Tensor:
@@ -186,9 +191,12 @@ class SwinTransformer(nn.Module):
     embed 128, depths (2, 2, 18, 2), heads (4, 8, 16, 32), window 7)."""
 
     def __init__(self, embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
-                 window_size=7):
+                 window_size=7, use_checkpoint=False):
         super().__init__()
         self.window_size = window_size
+        # recompute each block in the backward (JAX: nn.remat of each block,
+        # mde_tpu/offline/swin.py:184-190); Swin holds no BatchNorm stats
+        self.use_checkpoint = use_checkpoint
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList(
             BasicLayer(embed_dim * 2 ** s, depth, num_heads[s], window_size,
@@ -198,7 +206,7 @@ class SwinTransformer(nn.Module):
 
     @property
     def dtype(self):
-        return self.patch_embed.proj.weight.dtype
+        return compute_dtype(self.patch_embed.proj)
 
     def forward(self, x):
         h_in, w_in = x.shape[-2:]
@@ -212,7 +220,10 @@ class SwinTransformer(nn.Module):
             mask = (shift_attention_mask(hp, wp, ws, ws // 2, y.device)
                     if len(layer.blocks) > 1 else None)
             for block in layer.blocks:
-                y = block(y, mask)
+                if self.use_checkpoint and torch.is_grad_enabled():
+                    y = checkpoint(block, y, mask, use_reentrant=False)
+                else:
+                    y = block(y, mask)
             outs.append(getattr(self, f"norm{s}")(y).permute(0, 3, 1, 2).contiguous())
             if layer.downsample is not None:
                 y = layer.downsample(y)

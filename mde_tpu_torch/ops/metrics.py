@@ -1,6 +1,7 @@
 """Depth-eval metrics, port of `mde_tpu/ops/metrics.py` (reference
 utils.py:119-139): the host version over gathered valid pixels, a masked
-version on the device, and the static eval crop.
+version on the device, the static eval crop, and the segmentation mIoU
+accumulators (`intersection_and_union`, numpy).
 
 Every metric is a mean over valid pixels, so the masked form (weighted means
 over the dense map) is the same arithmetic as the gathered form with shapes
@@ -68,6 +69,23 @@ def compute_errors_masked(gt: torch.Tensor, pred: torch.Tensor, mask: torch.Tens
 
     return dict(a1=a1, a2=a2, a3=a3, abs_rel=abs_rel, rmse=rmse, log_10=log_10,
                 rmse_log=rmse_log, silog=silog, sq_rel=sq_rel)
+
+
+def intersection_and_union(pred: np.ndarray, label: np.ndarray, num_classes: int,
+                           ignore_index: int = -1):
+    """Segmentation mIoU accumulators (the reference's mit_semseg/utils.py
+    intersectionAndUnion): per-class (intersection, union) histograms;
+    mIoU = (inter / union).mean() over the classes with union > 0."""
+    pred = np.asarray(pred).reshape(-1)
+    label = np.asarray(label).reshape(-1)
+    valid = label != ignore_index
+    pred = pred[valid]
+    label = label[valid]
+    inter = pred[pred == label]
+    area_inter, _ = np.histogram(inter, bins=num_classes, range=(0, num_classes))
+    area_pred, _ = np.histogram(pred, bins=num_classes, range=(0, num_classes))
+    area_label, _ = np.histogram(label, bins=num_classes, range=(0, num_classes))
+    return area_inter, area_pred + area_label - area_inter
 
 
 def eval_mask(gt_hw_shape, dataset: str = "nyu", garg_crop: bool = False,

@@ -565,31 +565,13 @@ def _nyu_tree(root, n_train, n_eval, eval_hw=(480, 640)):
         if i < n_train:
             shutil.copyfile(frame, scene / f"rgb_{i}.jpg")
         else:  # a PNG crop of the frame: the RGB-PNG path
-            write_rgb_png(scene / f"rgb_{i}.png", read_rgb(frame)[:hw[0], :hw[1]])
+            write_png(scene / f"rgb_{i}.png", read_rgb(frame)[:hw[0], :hw[1]])
         write_png(scene / f"sync_depth_{i}.png", rng.integers(400, 9000, hw).astype(np.uint16))
         ext = "jpg" if i < n_train else "png"
         lines.append(f"/classroom_0001/rgb_{i}.{ext} /classroom_0001/sync_depth_{i}.png 518.8579")
     (root / "train.txt").write_text("\n".join(lines[:n_train]) + "\n")
     (root / "eval.txt").write_text("\n".join(lines[n_train:]) + "\n")
     return root
-
-
-def write_rgb_png(path, rgb):
-    """(H, W, 3) uint8 as an 8-bit RGB PNG."""
-    import struct
-    import zlib
-
-    import numpy as np
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, 3 * w)], axis=1)
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
-                                                                        0, 0, 0))
-                     + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
 
 
 def _train_argv(root, *extra):
@@ -792,3 +774,92 @@ def test_offline_nms_and_roi_align_equal_the_cpu(cuda):
         assert torch.equal(got.cpu(), want)
     want = ops.roi_align(feats[0], rois, 7, 0.25)
     assert torch.equal(ops.roi_align(feats[0].to(cuda), rois.to(cuda), 7, 0.25).cpu(), want)
+
+
+def _coco_tree(root, n_images):
+    """n_images copies of the repo's NYU frame with a COCO json over 100
+    classes: a polygon, an uncompressed RLE rectangle and a bbox-only box a
+    frame (chip_smoke.py phase 11 writes the fuller tree)."""
+    import json
+    import os
+    import shutil
+
+    import numpy as np
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    frame = os.path.join(repo, "test_imgs", "classroom__rgb_00283.jpg")
+    mask = np.zeros((480, 640), np.uint8)
+    mask[100:300, 200:420] = 1
+    flat = mask.T.reshape(-1)
+    cuts = np.flatnonzero(np.diff(flat)) + 1
+    counts = [int(c) for c in np.diff(np.concatenate([[0], cuts, [flat.size]]))]
+    images, anns = [], []
+    for i in range(n_images):
+        shutil.copyfile(frame, root / f"{i}.jpg")
+        images.append({"id": i, "file_name": f"{i}.jpg", "height": 480, "width": 640})
+        anns += [{"id": 3 * i, "image_id": i, "category_id": 5, "bbox": [50.5, 60.2, 150, 120],
+                  "segmentation": [[50.5, 60.2, 200.5, 80.1, 120.7, 180.2]], "iscrowd": 0},
+                 {"id": 3 * i + 1, "image_id": i, "category_id": 42, "bbox": [200, 100, 220, 200],
+                  "segmentation": {"size": [480, 640], "counts": counts}, "iscrowd": 0},
+                 {"id": 3 * i + 2, "image_id": i, "category_id": 99, "bbox": [400, 300, 90, 80],
+                  "iscrowd": 0}]
+    path = root / "instances.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns, "categories": [
+        {"id": c, "name": str(c)} for c in range(1, 101)]}))
+    return path
+
+
+@pytest.mark.cuda
+def test_train_detector_cli_on_the_card(cuda, tmp_path):
+    """train_detector at full width on the card (bf16, use_checkpoint, 100
+    classes, the full AutoAugment scale set): 3 steps, finite losses, no
+    port kernel launched, and the checkpoint loads strictly through
+    load_detector with every tensor equal."""
+    import math
+
+    from mde_tpu_torch.offline import train_detector
+    from mde_tpu_torch.offline.cascade_rcnn import load_detector
+    ann = _coco_tree(tmp_path, 2)
+    seen = []
+    real = train_detector.train_step
+
+    def step(*a, **k):
+        seen.append(real(*a, **k))
+        return seen[-1]
+
+    train_detector.train_step = step
+    before = (bins_head.LAUNCHES, bins_head.TC_LAUNCHES, chamfer.LAUNCHES)
+    try:
+        model = train_detector.main(["--images", str(tmp_path), "--annotations", str(ann),
+                                     "--max-steps", "3", "--out", str(tmp_path / "run")])
+    finally:
+        train_detector.train_step = real
+    assert (bins_head.LAUNCHES, bins_head.TC_LAUNCHES, chamfer.LAUNCHES) == before
+    assert len(seen) == 3 and all(math.isfinite(float(v)) for s in seen for v in s.values())
+    loaded = load_detector(str(tmp_path / "run" / "detector_latest.pth")).state_dict()
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded[k], v.cpu()), k
+
+
+@pytest.mark.cuda
+def test_hrnet_train_step_equals_the_cpu(cuda):
+    """One HRNetV2-W48 + C1 step (150 classes, float32, TF32 off, SGD +
+    poly) at 128x192, batch 2, on the card and on the CPU: loss rtol 1e-4,
+    every BatchNorm buffer within 1e-4 of its largest value."""
+    from mde_tpu_torch.offline.hrnet import HRNetV2C1
+    from mde_tpu_torch.offline.hrnet_train import build_semseg_optimizer, make_semseg_train_step
+    from mde_tpu_torch.offline.layers import seeded
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 3, 128, 192), generator=g)
+    labels = torch.randint(0, 150, (2, 32, 48), generator=g)
+    labels[:, 0] = -1
+    out = {}
+    for device in ("cpu", cuda):
+        model = seeded(HRNetV2C1, 0).to(device)
+        opt, sched = build_semseg_optimizer(model)
+        loss = make_semseg_train_step(model, opt, sched)(x.to(device), labels.to(device))["loss"]
+        out[str(device)] = (float(loss), {n: b.cpu() for n, b in model.named_buffers()})
+    (l_cpu, b_cpu), (l_gpu, b_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for n, want in b_cpu.items():
+        err = (b_gpu[n] - want).abs().max() / want.abs().max().clamp(min=1e-30)
+        assert err <= 1e-4, (n, float(err))

@@ -6,7 +6,9 @@ against PIL and mde_tpu (CPU).
   is pinned here and in chip_smoke.py, whose machine has no PIL), random
   JPEGs at 4:2:0, 4:2:2 and 4:4:4, with optimized tables and with restart
   markers, 8- and 16-bit grayscale PNGs and an 8-bit RGB PNG (a KITTI
-  frame's format); `write_png` round-trips through PIL.
+  frame's format); `read_rgb` of grey JPEG and grey, grey-alpha and RGBA
+  PNG equals PIL's `convert("RGB")`, other kinds raise by name;
+  `write_png` (grey and RGB) round-trips through PIL.
 * Loader: with the same args and seed, the port's DepthDataLoader gives
   mde_tpu.data's batches for the first two batches of two epochs: integer
   maps and depth (derived from uint16) exactly, images to rtol 1e-6. Cases:
@@ -96,6 +98,40 @@ def test_write_png_reads_back_in_pil(tmp_path, dtype):
     decode.write_png(path, array)
     assert np.array_equal(np.asarray(Image.open(path)), array)
     assert np.array_equal(decode.read_png(path), array)
+
+
+def test_write_png_rgb_reads_back_in_pil(tmp_path):
+    array = np.random.default_rng(4).integers(0, 256, (19, 23, 3), dtype=np.uint8)
+    path = tmp_path / "x.png"
+    decode.write_png(path, array)
+    assert Image.open(path).mode == "RGB"
+    assert np.array_equal(np.asarray(Image.open(path)), array)
+    assert np.array_equal(decode.read_rgb(path), array)
+
+
+@pytest.mark.parametrize("mode,ext", [("L", "jpg"), ("L", "png"), ("LA", "png"), ("RGBA", "png")])
+def test_read_rgb_converts_as_pil(tmp_path, mode, ext):
+    """Grey JPEG (one component) and grey, grey-alpha and RGBA PNG come out
+    as PIL's `Image.open(path).convert("RGB")`, bit for bit."""
+    rng = np.random.default_rng(6)
+    channels = len(mode)
+    pix = rng.integers(0, 256, (27, 41, channels), dtype=np.uint8)
+    yy, xx = np.mgrid[:27, :41]
+    pix[..., 0] = np.where(rng.random((27, 41)) < 0.5, pix[..., 0], (5 * yy + 3 * xx) % 256)
+    path = tmp_path / f"x.{ext}"
+    Image.fromarray(pix[..., 0] if channels == 1 else pix, mode).save(path)
+    got = decode.read_rgb(path)
+    assert got.dtype == np.uint8 and got.shape == (27, 41, 3)
+    assert np.array_equal(got, np.asarray(Image.open(path).convert("RGB")))
+
+
+def test_read_rgb_refuses_other_kinds_by_name(tmp_path):
+    """A 16-bit grayscale PNG and a palette PNG raise, naming the file."""
+    Image.fromarray(np.zeros((4, 5), np.uint16)).save(tmp_path / "deep.png")
+    Image.fromarray(np.zeros((4, 5), np.uint8)).convert("P").save(tmp_path / "pal.png")
+    for name in ("deep.png", "pal.png"):
+        with pytest.raises(IOError, match=name):
+            decode.read_rgb(tmp_path / name)
 
 
 def test_unreadable_files_raise(tmp_path):

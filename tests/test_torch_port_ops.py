@@ -34,7 +34,10 @@ SLICE_MODULES = ["mde_tpu_torch", "mde_tpu_torch.ops", "mde_tpu_torch.ops.losses
                  "mde_tpu_torch.train.driver", "mde_tpu_torch.train.__main__",
                  "mde_tpu_torch.parallel", "mde_tpu_torch.evaluate", "mde_tpu_torch.offline",
                  "mde_tpu_torch.offline.generate_semantics",
-                 "mde_tpu_torch.offline.generate_instances"]
+                 "mde_tpu_torch.offline.generate_instances",
+                 "mde_tpu_torch.offline.train_detector", "mde_tpu_torch.offline.eval_detector",
+                 "mde_tpu_torch.offline.eval_semseg", "mde_tpu_torch.offline.hrnet_train",
+                 "mde_tpu_torch.utils.graphs"]
 FORBIDDEN = ("jax", "flax", "orbax", "mde_tpu", "PIL")
 
 
