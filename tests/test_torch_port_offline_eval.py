@@ -249,3 +249,30 @@ def test_train_detector_two_steps_and_its_checkpoint(tmp_path, monkeypatch, caps
     assert loaded.num_classes == 3
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
+
+
+def test_train_detector_pretrained_warm_start(tmp_path, capsys):
+    """--pretrained: an mmdet file with every key warm-starts the detector
+    (its weights, float32, in training mode); a file that lacks keys keeps
+    the seeded initialisation and says why, as the JAX script does."""
+    from mde_tpu_torch.offline.cascade_rcnn import CascadeMaskRCNN
+    from mde_tpu_torch.offline.layers import seeded
+    source = seeded(lambda: CascadeMaskRCNN(3), 5).state_dict()
+    full, partial = tmp_path / "full.pth", tmp_path / "partial.pth"
+    torch.save({"state_dict": {k: source[k] for k in list(source)[:4]}}, partial)
+    args = train_detector.parse_args(["--images", ".", "--annotations", "x.json",
+                                      "--num-classes", "3", "--device", "cpu",
+                                      "--pretrained", str(partial)])
+    model = train_detector.build_detector(args, torch.device("cpu"))
+    assert "partial checkpoint" in capsys.readouterr().out and model.training
+    seeded0 = seeded(lambda: CascadeMaskRCNN(3), 0).state_dict()
+    assert all(torch.equal(v, seeded0[k]) for k, v in model.state_dict().items())
+    torch.save({"state_dict": source}, full)  # ~580 MB: removed once read
+    try:
+        args.pretrained = str(full)
+        model = train_detector.build_detector(args, torch.device("cpu"))
+    finally:
+        full.unlink()
+    assert "warm-started" in capsys.readouterr().out
+    assert all(torch.equal(v, source[k]) for k, v in model.state_dict().items())
+    assert model.backbone.patch_embed.proj.weight.dtype == torch.float32
