@@ -652,12 +652,48 @@ def device_busy_us(prof):
     return busy_us, len(spans)
 
 
+def profiled(fn):
+    """(out, device events, device busy ms, wall ms, the profile) of one call
+    of fn under the profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_us, n = device_busy_us(prof)
+    return out, n, busy_us / 1e3, wall, prof
+
+
+def top_device_ops(prof, n=4):
+    """The n ops of a profile with the most device time of their own: name, ms."""
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:n]
+    return ", ".join(f"{name[:60]} {us / 1e3:.1f} ms" for name, us in rows)
+
+
+def op_table(prof, rows=30, sort_by="self_device_time_total", by_shape=False, **kw):
+    """A profile's table by op (and input shape), the most device time first."""
+    return prof.key_averages(group_by_input_shape=by_shape).table(
+        sort_by=sort_by, row_limit=rows, **{"max_name_column_width": 90, **kw})
+
+
+def write_profile(profile_dir, name, *tables):
+    """The tables, one after another, to chip_smoke_profile_<name>.txt under
+    --profile's directory; nothing without --profile."""
+    if profile_dir is None:
+        return
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"chip_smoke_profile_{name}.txt").write_text("\n".join(tables))
+
+
 def profile(helper, frames, out_dir):
     """For cuDNN TF32 off and on, and for cudnn.benchmark: the median request
     latency, device time by kernel and by op input shape over 2 requests, and
     the device's busy share (the union of kernel intervals over the wall)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
-    out_dir.mkdir(parents=True, exist_ok=True)
     for tf32, bench in ((False, False), (True, False), (False, True), (True, True)):
         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = tf32, bench
         tag = f"tf32_{int(tf32)}_benchmark_{int(bench)}"
@@ -669,12 +705,10 @@ def profile(helper, frames, out_dir):
                 helper.predict(frame)
             wall_us = (time.perf_counter() - t0) * 1e6
         busy_us, n_events = device_busy_us(prof)
-        by_kernel = prof.key_averages().table(sort_by="self_device_time_total",
-                                              row_limit=25, max_name_column_width=90)
-        by_shape = prof.key_averages(group_by_input_shape=True).table(
-            sort_by="device_time_total", row_limit=25, max_name_column_width=40,
-            max_shapes_column_width=100)
-        (out_dir / f"chip_smoke_profile_{tag}.txt").write_text(by_kernel + "\n" + by_shape)
+        by_kernel = op_table(prof, 25)
+        by_shape = op_table(prof, 25, "device_time_total", by_shape=True,
+                            max_name_column_width=40, max_shapes_column_width=100)
+        write_profile(out_dir, tag, by_kernel, by_shape)
         print(f"profile {tag}: median request {median:.3f} ms; over 2 requests wall "
               f"{wall_us:.0f} us, device busy {busy_us:.0f} us "
               f"({100 * busy_us / wall_us:.1f}%), {n_events} device events")
@@ -869,14 +903,12 @@ def cue_share(args, state, batch):
 def train_kernel_share(step, state, batch, profile_dir, label):
     """Device time of the port's kernels against all device time, over 2
     profiled steps, and the device's busy share of the wall."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def two_steps(state):
         for _ in range(2):
             state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, n_events = device_busy_us(prof)
+
+    _, n_events, busy_ms, wall_ms, prof = profiled(lambda: two_steps(state))
+    busy_us, wall_us = busy_ms * 1e3, wall_ms * 1e3
     events = device_events(prof)
     total = sum(e.time_range.elapsed_us() for e in events)
     ours = {name: sum(e.time_range.elapsed_us() for e in events if name in e.name)
@@ -884,11 +916,7 @@ def train_kernel_share(step, state, batch, profile_dir, label):
                          "bins_head_bwd_weight_kernel", "bins_head_tc_fwd_kernel",
                          "bins_head_tc_bwd_pixel_kernel", "bins_head_tc_bwd_weight_kernel",
                          "chamfer_kernel")}
-    if profile_dir is not None:
-        out = Path(profile_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        (out / f"chip_smoke_profile_{label}.txt").write_text(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=40, max_name_column_width=90))
+    write_profile(profile_dir, label, op_table(prof, 40))
     if total == 0:
         return "no device time in the profile: kernel share not measured"
     return (f"device time (sum of device events) {total / 2e3:.3f} ms per step; "
@@ -1085,17 +1113,10 @@ def evaluate(name, gen, profile_dir):
 def eval_profile(args, model, frames, out_dir, name):
     """Device time a frame over 4 profiled eval frames, the device's busy
     share of the wall, and the table by op (written to out_dir)."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_validate(args, model, frames[:4])
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, n_events = device_busy_us(prof)
+    _, n_events, busy_ms, wall_ms, prof = profiled(lambda: run_validate(args, model, frames[:4]))
+    busy_us, wall_us = busy_ms * 1e3, wall_ms * 1e3
     total = sum(e.time_range.elapsed_us() for e in device_events(prof))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"chip_smoke_profile_eval_{name.replace(' ', '_')}.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total", row_limit=30,
-                                  max_name_column_width=90))
+    write_profile(out_dir, f"eval_{name.replace(' ', '_')}", op_table(prof))
     return (f"profile over 4 frames: device time {total / 4e3:.3f} ms a frame, wall "
             f"{wall_us / 4e3:.3f} ms a frame (profiled), device busy "
             f"{100 * busy_us / wall_us:.1f}%, {n_events / 4:.0f} device events a frame")
@@ -1436,10 +1457,7 @@ def train_cli(root, profile_dir, synthetic_ms):
               f"steps) through the driver: wall {probe.prof_wall_us / (hi - lo + 1) / 1e3:.3f}"
               f" ms a step (profiled), device busy {100 * busy_us / probe.prof_wall_us:.1f}%, "
               f"{n_events / (hi - lo + 1):.0f} device events a step")
-        out = Path(profile_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "chip_smoke_profile_train_cli.txt").write_text(probe.prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=40, max_name_column_width=90))
+        write_profile(profile_dir, "train_cli", op_table(probe.prof, 40))
     alone, busy = loader_contention(args, state)
     print(f"train CLI: the driver's step on one device-resident batch, median of 6: alone "
           f"{alone:.3f} ms, while a thread iterates the loader {busy:.3f} ms "
@@ -2013,7 +2031,6 @@ def offline_semantics(tree, card):
     from mde_tpu_torch.offline import hrnet as hrnet_module
     from mde_tpu_torch.offline.hrnet import (IMG_SIZES, HRNetV2C1, _scale_plan,
                                              hrnet_multiscale_inference)
-    from mde_tpu_torch.offline.layers import seeded
 
     model, clock, seconds, peak = run_cli(gs, "build_model", [
         "--images", str(tree), "--random-init", str(OFFLINE_SEED)])
@@ -2051,7 +2068,7 @@ def offline_semantics(tree, card):
           f"{parts['forwards']:.3f} ms + the rest (normalise, pad, H2D, sum, argmax, D2H) "
           f"{parts['segment'] - parts['host resizes'] - parts['forwards']:.3f} ms")
 
-    f32 = seeded(HRNetV2C1, OFFLINE_SEED).cuda().eval()
+    f32 = seeded_once(HRNetV2C1, OFFLINE_SEED, "hrnet").cuda().eval()
 
     def summed(m):
         acc = []
@@ -2075,7 +2092,7 @@ def offline_semantics(tree, card):
           f"(of 5)")
     check(agree >= HRNET_BF16_AGREE, f"bf16 HRNet agrees with float32 on {agree:.4f}")
 
-    cpu = seeded(HRNetV2C1, OFFLINE_SEED).eval()
+    cpu = seeded_once(HRNetV2C1, OFFLINE_SEED, "hrnet").eval()
     x = torch.randn((1, 3, *OFFLINE_SMALL_HW), generator=torch.Generator().manual_seed(SEED))
     with torch.inference_mode():
         soft = (f32(x.cuda(), OFFLINE_SMALL_HW).cpu(), cpu(x, OFFLINE_SMALL_HW))
@@ -2154,7 +2171,6 @@ def offline_instances(tree, card):
     from mde_tpu_torch.data import read_rgb
     from mde_tpu_torch.offline import generate_instances as gi
     from mde_tpu_torch.offline.cascade_rcnn import CascadeMaskRCNN
-    from mde_tpu_torch.offline.layers import seeded
 
     stats = tree / "instance_stats.pkl"
     model, clock, seconds, peak = run_cli(gi, "build_detector", [
@@ -2210,14 +2226,16 @@ def offline_instances(tree, card):
           "multiclass_nms = the classes' NMS; masks = 3 mask heads)")
     offline_ops(model, img, card)
 
-    f32 = seeded(lambda: CascadeMaskRCNN(100, OFFLINE_SCORE_THR), OFFLINE_SEED).cuda().eval()
+    f32 = seeded_once(lambda: CascadeMaskRCNN(100, OFFLINE_SCORE_THR), OFFLINE_SEED,
+                      "detector 100").cuda().eval()
     n_valid32 = int(gi.detect(f32, img)["valid"].sum())
     print(f"offline instances [{card}]: bf16 against float32 at 800x1088, the same seeded "
           f"weights: {n_valid16} against {n_valid32} valid detections on frame 0 (both must "
           f"have some)")
     check(n_valid16 > 0 and n_valid32 > 0, "a detector found nothing")
 
-    cpu = seeded(lambda: CascadeMaskRCNN(100, OFFLINE_SCORE_THR), OFFLINE_SEED).eval()
+    cpu = seeded_once(lambda: CascadeMaskRCNN(100, OFFLINE_SCORE_THR), OFFLINE_SEED,
+                      "detector 100").eval()
     x = torch.randn((1, 3, *OFFLINE_SMALL_HW), generator=torch.Generator().manual_seed(SEED))
     rng = np.random.default_rng(SEED)
     xy = rng.uniform(0, [OFFLINE_SMALL_HW[1] - 8, OFFLINE_SMALL_HW[0] - 8], (64, 2))
@@ -2343,6 +2361,25 @@ def rle_counts(mask):
     return ([0] if flat[0] else []) + [int(r) for r in runs]
 
 
+_SEEDED = {}
+
+
+def seeded_once(factory, seed, key):
+    """`seeded(factory, seed)` with the draws made once per (key, seed): a
+    later call builds `factory()` on the meta device and takes a copy of the
+    first call's tensors (drawing Swin-B's 145 M weights takes the host
+    seconds)."""
+    from mde_tpu_torch.offline.layers import load_checked, seeded
+    if (key, seed) not in _SEEDED:
+        model = seeded(factory, seed)
+        _SEEDED[key, seed] = {k: v.clone() for k, v in model.state_dict().items()}
+        return model
+    with torch.device("meta"):
+        model = factory()
+    state = {k: v.clone() for k, v in _SEEDED[key, seed].items()}
+    return load_checked(model, state, f"seeded {key}").eval()
+
+
 def coco_tree(root):
     """COCO_FRAMES copies of CLASSROOM and one instances json over
     COCO_CLASSES classes: per frame two polygons of two parts with float
@@ -2378,39 +2415,6 @@ def coco_tree(root):
     path.write_text(json.dumps({"images": images, "annotations": anns, "categories": [
         {"id": c, "name": f"class{c}"} for c in range(1, COCO_CLASSES + 1)]}))
     return path
-
-
-def profiled(fn):
-    """(out, device events, device busy ms, wall ms, the profile) of one call
-    of fn under the profiler."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy_us, n = device_busy_us(prof)
-    return out, n, busy_us / 1e3, wall, prof
-
-
-def top_device_ops(prof, n=4):
-    """The n ops of a profile with the most device time of their own: name, ms."""
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:n]
-    return ", ".join(f"{name[:60]} {us / 1e3:.1f} ms" for name, us in rows)
-
-
-def write_profile(prof, profile_dir, name):
-    if profile_dir is None:
-        return
-    out = Path(profile_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    averages = prof.key_averages()
-    (out / f"chip_smoke_profile_{name}.txt").write_text(
-        averages.table(sort_by="self_cuda_time_total", row_limit=30, max_name_column_width=80)
-        + "\n" + averages.table(sort_by="self_cpu_time_total", row_limit=30,
-                                 max_name_column_width=80))
 
 
 def recorded_uniform(device):
@@ -2452,7 +2456,8 @@ def train_detector_cli(tree, ann, out, card, profile_dir):
             out, n, busy, wall, prof = profiled(lambda: real_step(model, opt, sched, sample,
                                                                   uniform))
             events.append((n, busy, wall, top_device_ops(prof), tuple(sample["image"].shape[:2])))
-            write_profile(prof, profile_dir, "detector_step")
+            write_profile(profile_dir, "detector_step", op_table(prof),
+                          op_table(prof, sort_by="self_cpu_time_total"))
         else:
             out = real_step(model, opt, sched, sample, uniform, *a, **k)
         torch.cuda.synchronize()
@@ -2539,15 +2544,15 @@ def detector_split(model, tree, ann, card):
     for name in ("rpn_loss", "rcnn_stage_targets", "mask_targets"):
         clock.wrap(detection_train, name)
     clock.wrap(cascade_rcnn, "extract_roi_features")
+    image, img_hw = put(sample["image"]).permute(2, 0, 1)[None], tuple(sample["valid_hw"])
     try:
         opt.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        n_masks = max(int(sample["gt_valid"].sum()), 1)
         losses = model.compute_losses(
-            put(sample["image"]).permute(2, 0, 1)[None], put(sample["gt_boxes"]),
-            put(sample["gt_labels"]).long(), put(sample["gt_valid"]),
-            put(sample["gt_masks"][:max(int(sample["gt_valid"].sum()), 1)]), uniform,
-            tuple(sample["valid_hw"]))
+            image, put(sample["gt_boxes"]), put(sample["gt_labels"]).long(),
+            put(sample["gt_valid"]), put(sample["gt_masks"][:n_masks]), uniform, img_hw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     finally:
@@ -2566,6 +2571,32 @@ def detector_split(model, tree, ann, card):
           f"{1e3 * (t1 - t0):.1f} ms, of it {parts}; backward {1e3 * (t2 - t1):.1f} ms (the Swin "
           f"blocks recomputed, RoIAlign's scatter); AdamW {1e3 * (t3 - t2):.1f} ms")
     del opt
+    proposals_with_and_without_grad(model, image, img_hw, card)
+
+
+def proposals_with_and_without_grad(model, image, img_hw, card):
+    """The RPN's proposals of one 800x1088 frame from features that carry a
+    graph, without autograd's record (as compute_losses runs them) and with
+    it, alternating, synchronized: the record's cost on the host."""
+    feats = model.features(image)
+    rpn_outs = model.rpn_head(feats)
+
+    def proposals_ms(grad):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.set_grad_enabled(grad):
+            model.proposals(feats, img_hw, rpn_outs)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    times = {False: [], True: []}
+    for _ in range(3):
+        for grad in (False, True):
+            times[grad].append(proposals_ms(grad))
+    print(f"train_detector [{card}]: the proposals alone at {image.shape[2]}x{image.shape[3]}, "
+          f"median of 3 alternating: {statistics.median(times[False]):.1f} ms without autograd's "
+          f"record, {statistics.median(times[True]):.1f} ms with it (all: "
+          f"{[round(t, 1) for t in times[False]]}, {[round(t, 1) for t in times[True]]})")
 
 
 def detector_card_vs_cpu(tree, ann, card):
@@ -2576,7 +2607,6 @@ def detector_card_vs_cpu(tree, ann, card):
     from mde_tpu_torch.offline.cascade_rcnn import CascadeMaskRCNN
     from mde_tpu_torch.offline.coco_dataset import CocoInstanceDataset
     from mde_tpu_torch.offline.detection_data import detector_optimizer, fixed_scales
-    from mde_tpu_torch.offline.layers import seeded
 
     ds = CocoInstanceDataset(str(tree), str(ann))
     sample = ds.train_sample(np.random.default_rng(SEED), 0, max_gt=100,
@@ -2584,7 +2614,8 @@ def detector_card_vs_cpu(tree, ann, card):
     result = {}
     uniform, draws = recorded_uniform("cpu")
     for device in ("cpu", "cuda"):
-        model = seeded(lambda: CascadeMaskRCNN(COCO_CLASSES), SEED).to(device).train()
+        model = seeded_once(lambda: CascadeMaskRCNN(COCO_CLASSES), SEED,
+                            f"detector {COCO_CLASSES}").to(device).train()
         opt, sched = detector_optimizer(model, steps_per_epoch=COCO_FRAMES)
         t0 = time.perf_counter()
         losses = td.train_step(model, opt, sched, sample,
@@ -2614,7 +2645,7 @@ def detector_remat(tree, ann, card):
     from mde_tpu_torch.offline.cascade_rcnn import CascadeMaskRCNN
     from mde_tpu_torch.offline.coco_dataset import CocoInstanceDataset
     from mde_tpu_torch.offline.detection_data import detector_optimizer, fixed_scales
-    from mde_tpu_torch.offline.layers import cast_at_use, seeded
+    from mde_tpu_torch.offline.layers import cast_at_use
 
     ds = CocoInstanceDataset(str(tree), str(ann))
     sample = ds.train_sample(np.random.default_rng(SEED), 0, max_gt=100,
@@ -2622,8 +2653,9 @@ def detector_remat(tree, ann, card):
     uniform, draws = recorded_uniform("cuda")
     result = {}
     for remat in (True, False):
-        model = cast_at_use(seeded(lambda: CascadeMaskRCNN(COCO_CLASSES, use_checkpoint=remat),
-                                   SEED), torch.bfloat16).cuda().train()
+        model = seeded_once(lambda: CascadeMaskRCNN(COCO_CLASSES, use_checkpoint=remat), SEED,
+                            f"detector {COCO_CLASSES}")
+        model = cast_at_use(model, torch.bfloat16).cuda().train()
         opt, sched = detector_optimizer(model, steps_per_epoch=COCO_FRAMES)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2677,7 +2709,6 @@ def hrnet_training(card, profile_dir):
     and one step card against CPU."""
     from mde_tpu_torch.offline.hrnet import HRNetV2C1
     from mde_tpu_torch.offline.hrnet_train import build_semseg_optimizer, make_semseg_train_step
-    from mde_tpu_torch.offline.layers import seeded
 
     def batch(hw, seed):
         g = torch.Generator().manual_seed(seed)
@@ -2687,7 +2718,7 @@ def hrnet_training(card, profile_dir):
         return x, labels
 
     torch.cuda.empty_cache()
-    model = seeded(HRNetV2C1, SEED).cuda()
+    model = seeded_once(HRNetV2C1, SEED, "hrnet").cuda()
     opt, sched = build_semseg_optimizer(model)
     step = make_semseg_train_step(model, opt, sched)
     x, labels = (t.cuda() for t in batch(HRNET_TRAIN_HW, SEED))
@@ -2703,7 +2734,8 @@ def hrnet_training(card, profile_dir):
         losses.append(float(metrics["loss"]))
     peak = torch.cuda.max_memory_allocated()
     _, events, busy, wall, prof = profiled(lambda: step(x, labels))
-    write_profile(prof, profile_dir, "hrnet_step")
+    write_profile(profile_dir, "hrnet_step", op_table(prof),
+                  op_table(prof, sort_by="self_cpu_time_total"))
     timed = times[DET_WARMUP:]
     print(f"hrnet train [{card}]: HRNetV2-W48 + C1, 150 classes, float32 (TF32 off), batch "
           f"{HRNET_TRAIN_BATCH} of {HRNET_TRAIN_HW[0]}x{HRNET_TRAIN_HW[1]}, SGD + poly, one fixed "
@@ -2720,7 +2752,7 @@ def hrnet_training(card, profile_dir):
     x, labels = batch(HRNET_STEP_HW, SEED + 1)
     out = {}
     for device in ("cpu", "cuda"):
-        m = seeded(HRNetV2C1, SEED).to(device)
+        m = seeded_once(HRNetV2C1, SEED, "hrnet").to(device)
         o, s = build_semseg_optimizer(m)
         metrics = make_semseg_train_step(m, o, s)(x.to(device), labels.to(device))
         out[device] = (float(metrics["loss"]), [b.detach().float().cpu() for n, b in
@@ -2742,10 +2774,9 @@ def eval_semseg_cli(root, card):
     from mde_tpu_torch.data.decode import read_png, write_png
     from mde_tpu_torch.offline import eval_semseg as es
     from mde_tpu_torch.offline.hrnet import HRNetV2C1, hrnet_multiscale_inference
-    from mde_tpu_torch.offline.layers import seeded
 
     root.mkdir(parents=True)
-    model = seeded(HRNetV2C1, SEED)
+    model = seeded_once(HRNetV2C1, SEED, "hrnet")
     torch.save(model.encoder.state_dict(), root / "encoder_epoch_30.pth")
     torch.save(model.decoder.state_dict(), root / "decoder_epoch_30.pth")
     yy, xx = np.mgrid[:FRAME_HW[0], :FRAME_HW[1]]
@@ -2801,19 +2832,29 @@ def offline_training(root, card, profile_dir):
     seeded weights at full width; no port kernel lies on this path. With
     --profile, the profiled detector and HRNet steps' tables go to DIR."""
     t0 = time.perf_counter()
+    seconds = {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
     tree = root / "coco"
-    ann = coco_tree(tree)
+    ann = part("coco tree", coco_tree, tree)
     reset_counts()
-    ckpt = train_detector_cli(tree, ann, root / "runs_detector", card, profile_dir)
-    detector_card_vs_cpu(tree, ann, card)
-    detector_remat(tree, ann, card)
-    eval_detector_cli(tree, ann, ckpt, card)
-    hrnet_training(card, profile_dir)
-    eval_semseg_cli(root / "semseg", card)
+    ckpt = part("a", train_detector_cli, tree, ann, root / "runs_detector", card, profile_dir)
+    part("b", detector_card_vs_cpu, tree, ann, card)
+    part("c", detector_remat, tree, ann, card)
+    part("d", eval_detector_cli, tree, ann, ckpt, card)
+    part("e", hrnet_training, card, profile_dir)
+    part("f", eval_semseg_cli, root / "semseg", card)
     counts = read_counts()
     print(f"offline training [{card}]: launches of the port's kernels: {counts} (no TPU kernel "
-          f"lies on this path); phase 11 in {time.perf_counter() - t0:.1f} s")
+          f"lies on this path); phase 11 in {time.perf_counter() - t0:.1f} s, of it (s) "
+          f"{seconds}")
     check(not any(counts.values()), f"offline training launched a port kernel: {counts}")
+    _SEEDED.clear()
 
 
 def main(argv):

@@ -252,8 +252,10 @@ class CascadeMaskRCNN(nn.Module):
         rpn_cls, rpn_reg = rpn_loss(anchors, cls_flat, reg_flat, gt_boxes, gt_labels, gt_valid,
                                     uniform, img_hw)
         losses = {"rpn_cls": rpn_cls, "rpn_reg": rpn_reg}
-        # no gradient through the proposal chain
-        rois = self.proposals(feats, img_hw, rpn_outs)[0].detach()
+        # no gradient through the proposal chain (JAX's stop_gradient), and
+        # no autograd record of its NMS loop
+        with torch.no_grad():
+            rois = self.proposals(feats, img_hw, rpn_outs)[0]
         c = self.num_classes
         for i, (head, mask_head) in enumerate(zip(self.roi_head.bbox_head,
                                                   self.roi_head.mask_head)):

@@ -9,9 +9,9 @@ mit_semseg/models/hrnet.py and models.py `C1`): `encoder` holds the keys of
 `mde_tpu/offline/hrnet_convert.py:45-148` reads.
 
 Casts follow the JAX module: BatchNorm in float32, cast back to the compute
-dtype; the logits go to float32 before the resize to `seg_size` and the
-softmax. The exchange units' upsamples and the C1 resize are the half-pixel
-matmul resize (`ops/resize.py`).
+dtype; the logits go to float32 (a float64 model's stay float64) before
+the resize to `seg_size` and the softmax. The exchange units' upsamples
+and the C1 resize are the half-pixel matmul resize (`ops/resize.py`).
 
 `hrnet_multiscale_inference` is the test protocol of test.py:60-103: five
 scales (short side 300-600, long side at most 1000, padded to /32), the
@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from ..data.transforms import normalize_image, resize_bilinear_pil
 from ..ops.resize import resize_bilinear_half_pixel
-from .layers import BatchNorm2d, compute_dtype, load_checked, to_compute_dtype
+from .layers import (BatchNorm2d, at_least_f32, compute_dtype, load_checked,
+                     to_compute_dtype)
 
 _STAGE_CFG = {
     # stage: (num_modules, branch_channels, blocks_per_branch)
@@ -170,7 +171,8 @@ class C1(nn.Module):
 
 class HRNetV2C1(nn.Module):
     """Trunk + C1. Returns float32 softmax scores at `seg_size`, or float32
-    log-softmax at 1/4 of the input without it (CSAIL models.py:363-385)."""
+    log-softmax at 1/4 of the input without it (CSAIL models.py:363-385);
+    float64 for a float64 model."""
 
     def __init__(self, num_classes=150, fc_dim=720):
         super().__init__()
@@ -182,7 +184,7 @@ class HRNetV2C1(nn.Module):
         return compute_dtype(self.decoder.conv_last)
 
     def forward(self, x, seg_size=None):
-        y = self.decoder(self.encoder(x.to(self.dtype))).float()
+        y = at_least_f32(self.decoder(self.encoder(x.to(self.dtype))))
         if seg_size is not None:
             return torch.softmax(resize_bilinear_half_pixel(y, seg_size), dim=1)
         return torch.log_softmax(y, dim=1)

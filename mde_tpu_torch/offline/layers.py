@@ -30,11 +30,8 @@ import torch.nn.functional as F
 
 from ..models import norm
 
-# keys a published checkpoint holds that carry no weight of these networks
-IGNORED_KEYS = ("num_batches_tracked",)
 
-
-def _at_least_f32(x):
+def at_least_f32(x):
     """bf16 and float16 to float32; float32 and float64 as they are."""
     return x if x.dtype in (torch.float32, torch.float64) else x.float()
 
@@ -43,14 +40,16 @@ class BatchNorm2d(norm.BatchNorm2d):
     """`models/norm.py`'s BatchNorm (flax's running-stat update in training)
     on a float32 copy of the input, cast back to its dtype. The state_dict
     holds weight, bias, running_mean and running_var: no batch counter, which
-    flax does not keep (a file's `num_batches_tracked` is dropped)."""
+    flax does not keep. A file's `num_batches_tracked` is dropped here on
+    load (torch's own BatchNorm loader would otherwise add one to a
+    state_dict without version metadata)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__(channels, eps=eps, momentum=0.1)
         self.register_buffer("num_batches_tracked", None)
 
     def forward(self, x):
-        return super().forward(_at_least_f32(x)).to(x.dtype)
+        return super().forward(at_least_f32(x)).to(x.dtype)
 
     def _load_from_state_dict(self, state_dict, prefix, *args):
         state_dict.pop(prefix + "num_batches_tracked", None)
@@ -65,7 +64,7 @@ class LayerNorm(nn.LayerNorm):
         super().__init__(channels, eps=eps)
 
     def forward(self, x):
-        return F.layer_norm(_at_least_f32(x), self.normalized_shape, self.weight, self.bias,
+        return F.layer_norm(at_least_f32(x), self.normalized_shape, self.weight, self.bias,
                             self.eps).to(x.dtype)
 
 
@@ -175,15 +174,12 @@ def seeded(factory, seed: int) -> nn.Module:
 
 
 def load_checked(module: nn.Module, state_dict: dict, what: str) -> nn.Module:
-    """`load_state_dict(strict=True, assign=True)` that names every missing
-    and unexpected key; `num_batches_tracked` counters are dropped first. The
-    module may live on the meta device: its tensors become the file's."""
-    sd = {k: v for k, v in state_dict.items() if k.rsplit(".", 1)[-1] not in IGNORED_KEYS}
-    own = module.state_dict()
-    missing = sorted(set(own) - set(sd))
-    unexpected = sorted(set(sd) - set(own))
+    """`load_state_dict(assign=True)` that raises naming every missing and
+    unexpected key (BatchNorm2d drops a file's batch counters). The module
+    may live on the meta device: its tensors become the file's."""
+    result = module.load_state_dict(state_dict, strict=False, assign=True)
+    missing, unexpected = sorted(result.missing_keys), sorted(result.unexpected_keys)
     if missing or unexpected:
         raise KeyError(f"{what}: {len(missing)} missing keys {missing[:20]}, "
                        f"{len(unexpected)} unexpected keys {unexpected[:20]}")
-    module.load_state_dict(sd, strict=True, assign=True)
     return module

@@ -4,36 +4,44 @@ against mde_tpu.offline.hrnet_train (CPU, float32).
 The JAX model is seeded from the port's encoder and decoder state_dicts
 through its own converter (`convert_hrnet_c1`, handed the dicts in memory).
 One `make_semseg_train_step` on each side (the JAX step under its own
-jax.jit): W48 widths (48/96/192/384 branches, 4 blocks a branch), one
-exchange unit a stage instead of (1, 4, 3) (the stage tables of both
-packages and the converter's set for this file: the full network's JAX
-training step takes longer than this file's budget to trace and compile), a batch of 2 of
-64x64, 8 classes, labels at 1/4 resolution with a -1 border and a -1
-patch, torch's native CPU convolutions (oneDNN's are less exact), SGD + poly (base lr 0.02 over 100 iterations, momentum 0.9, weight
-decay 1e-4). The port's updated state_dict goes through the same converter
-and is held leaf by leaf, and the port's float64 step is the reference for
-the float32 noise.
+jax.jit) in float32 and in float64: W48 widths (48/96/192/384 branches, 4
+blocks a branch), one exchange unit a stage instead of (1, 4, 3) (the stage
+tables of both packages and the converter's set for this file: the full
+network's JAX training step takes longer than this file's budget to trace
+and compile), a batch of 2 of 64x64, 8 classes, labels at 1/4 resolution
+with a -1 border and a -1 patch, torch's native CPU convolutions (oneDNN's
+are less exact), SGD + poly (base lr 0.02 over 100 iterations, momentum
+0.9, weight decay 1e-4). JAX's float64 step runs under x64 with the float32
+casts of its `hrnet.py` and `ops/resize.py` (BatchNorm, logits, resize)
+read as float64 (the modules' `jnp` swapped for this file); it is the
+reference the float32 noise is measured against. The updated state_dicts go
+through the same converter and are held leaf by leaf.
 
-Tolerances: loss and pixel accuracy rtol 1e-5; every updated parameter
-and every BatchNorm running mean and variance (flax's update, the biased
-batch variance) within 1e-5 of the largest magnitude of its tensor, or,
-for a tensor where float32 noise alone is larger, against the port's
-float64 step: within twice JAX's own distance from it (plus 1e-5) or
-within 1e-4, and for a BatchNorm bias whose gradient cancels within 1e-2,
-of the tensor's largest magnitude. Such noise is real and large at
-initialisation: each of the ~100 train-mode BatchNorms takes the mean out
-of the gradient it passes down, so a BatchNorm bias feeding a ReLU, a
-convolution and the next BatchNorm gets a sum of terms of either sign,
-~1e-3 of their size, and the layers below inherit the noise. Measured: 153
-of 353 updated tensors are beyond 1e-5 of JAX's, and on them JAX's own
-float32 step is as far from the float64 step (kernels up to 4.5e-4, these
-biases up to 3.7e-3); 14 of 234 BatchNorm stats, ~1e-5 on both sides. The
-full network's JAX step differs from itself under two compiles by up to
-~7 % of such a bias's largest value. `-s` prints the tensors held to
-float64 with both errors.
+Tolerances: loss and pixel accuracy rtol 1e-5 against JAX's float32 step.
+The two float64 steps agree: loss rtol 1e-12, accuracy (the port's is a
+float32 ratio of counts) 1e-7, every updated parameter and BatchNorm running
+mean and variance within 1e-10 of its tensor's largest magnitude (measured
+2.3e-13). Against JAX's float64 step, each tensor of the port's float32
+step lies within twice JAX's own float32 distance from it plus 1e-5 of the
+largest magnitude or, beyond that, within a noise bound fixed by name:
+1e-2 for a BatchNorm bias, 1e-4 for any other tensor; and the port's
+summed squared float32 error is at most twice JAX's. More than half the
+parameters and 90 % of the BatchNorm stats lie within 1e-5 of JAX's float32
+step. Float32 noise is real and large at initialisation: each of the ~100
+train-mode BatchNorms takes the mean out of the gradient it passes down, so
+a BatchNorm bias feeding a ReLU, a convolution and the next BatchNorm gets a
+sum of terms of either sign, ~1e-3 of their size, and the layers below
+inherit the noise. Measured: 153 of 353 updated tensors beyond 1e-5 of
+JAX's float32 step, JAX's own float32 error up to 2.9e-2 of a BatchNorm
+bias's largest value; two tensors of the port beyond twice JAX's (stage 4's
+first block: bn1's bias at 5.9e-3 against JAX's 2.3e-5, conv1 at 1.8e-5
+against 8.2e-8); 14 of 234 BatchNorm stats beyond 1e-5, none beyond twice
+JAX's noise. `-s` prints these counts.
 The poly schedule equals JAX's (float32) at steps 0, 1, 50, 99, 100 and 150,
 and the optimizer runs update k at the schedule's step k.
 """
+
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +54,7 @@ from mde_tpu.offline import hrnet as jax_hrnet
 from mde_tpu.offline import hrnet_convert
 from mde_tpu.offline import hrnet_train as jax_train
 from mde_tpu.offline.hrnet_convert import convert_hrnet_c1
+from mde_tpu.ops import resize as jax_resize
 from mde_tpu_torch.offline import hrnet, hrnet_train
 from mde_tpu_torch.offline.layers import seeded
 
@@ -77,6 +86,20 @@ def _batch():
     return x, labels
 
 
+class _WidestJnp:
+    """`jax.numpy` with `float32` read as the widest float of the calling
+    thread's mode: float64 under x64, where the JAX module's float32
+    BatchNorms, logit cast and resize then compute in float64; float32, as
+    written, elsewhere."""
+
+    @property
+    def float32(self):
+        return jax.dtypes.canonicalize_dtype(jnp.float64)
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
 @pytest.fixture(scope="module")
 def steps():
     mp = pytest.MonkeyPatch()
@@ -89,41 +112,72 @@ def steps():
     # ~1e-2 of the largest value from the float64 step in the decoder's
     # 3x3 conv weight gradient (~2e-5 natively, as JAX's)
     mp.setattr(torch.backends.mkldnn, "enabled", False)
+    mp.setattr(jax_hrnet, "jnp", _WidestJnp())
+    mp.setattr(jax_resize, "jnp", _WidestJnp())
     try:
         yield _steps()
     finally:
         mp.undo()
 
 
-def _steps():
-    model = seeded(lambda: hrnet.HRNetV2C1(num_classes=N_CLASSES), 0)
-    model64 = seeded(lambda: hrnet.HRNetV2C1(num_classes=N_CLASSES), 0).double()
-    params, stats = _convert(model)
-    x, labels = _batch()
-    jmodel = jax_hrnet.HRNetV2C1(num_classes=N_CLASSES, dtype=jnp.float32)
-    tx = jax_train.build_semseg_optimizer(BASE_LR, MAX_ITERS)
-    params = jax.tree_util.tree_map(jnp.asarray, params)
-    jstep = jax_train.make_semseg_train_step(jmodel, tx)
-    jparams, _, jstats, jmetrics = jstep(params, tx.init(params),
-                                         jax.tree_util.tree_map(jnp.asarray, stats),
-                                         jnp.asarray(x), jnp.asarray(labels))
-    want = (jax.tree_util.tree_map(np.asarray, jparams), jax.tree_util.tree_map(
-        np.asarray, jstats), {k: float(v) for k, v in jmetrics.items()})
+def _jax_step(params, stats, x, labels, dtype):
+    """JAX's step at `dtype` (float64 under x64) on the given parameters."""
+    tree = jax.tree_util.tree_map
+    with jax.enable_x64(dtype == jnp.float64):
+        jmodel = jax_hrnet.HRNetV2C1(num_classes=N_CLASSES, dtype=dtype)
+        tx = jax_train.build_semseg_optimizer(BASE_LR, MAX_ITERS)
+        p = tree(lambda a: jnp.asarray(a, dtype), params)
+        jp, _, js, jm = jax_train.make_semseg_train_step(jmodel, tx)(
+            p, tx.init(p), tree(lambda a: jnp.asarray(a, dtype), stats),
+            jnp.asarray(x, dtype), jnp.asarray(labels))
+        assert jp["cbr_conv"]["kernel"].dtype == dtype
+        return tree(np.asarray, jp), tree(np.asarray, js), {k: float(v) for k, v in jm.items()}
 
-    images = torch.from_numpy(x).permute(0, 3, 1, 2)
-    opt, sched = hrnet_train.build_semseg_optimizer(model, BASE_LR, MAX_ITERS)
-    metrics = hrnet_train.make_semseg_train_step(model, opt, sched)(images,
-                                                                     torch.from_numpy(labels))
-    got_params, got_stats = _convert(model)
-    opt64, sched64 = hrnet_train.build_semseg_optimizer(model64, BASE_LR, MAX_ITERS)
-    hrnet_train.make_semseg_train_step(model64, opt64, sched64)(images.double(),
-                                                                torch.from_numpy(labels))
-    return (got_params, got_stats, {k: float(v) for k, v in metrics.items()}), want, opt, \
-        _convert(model64)
+
+def _steps():
+    """{"port32", "port64", "jax32", "jax64"}: (params, stats, metrics) after
+    one step, in the converter's tree; JAX's two steps run in two threads
+    beside the port's."""
+    model = seeded(lambda: hrnet.HRNetV2C1(num_classes=N_CLASSES), 0)
+    # copies: the converter's arrays share memory with the port's parameters,
+    # which the port's step updates in place
+    params, stats = jax.tree_util.tree_map(np.array, _convert(model))
+    x, labels = _batch()
+    jax_out, failures = {}, []
+
+    def jax_step(dtype):
+        try:
+            jax_out[dtype] = _jax_step(params, stats, x, labels, dtype)
+        except BaseException as e:  # raised again below
+            failures.append(e)
+
+    threads = [threading.Thread(target=jax_step, args=(d,)) for d in (jnp.float32, jnp.float64)]
+    for thread in threads:
+        thread.start()
+    out = {}
+    try:
+        images = torch.from_numpy(x).permute(0, 3, 1, 2)
+        for dtype in (torch.float32, torch.float64):
+            m = model if dtype == torch.float32 else seeded(
+                lambda: hrnet.HRNetV2C1(num_classes=N_CLASSES), 0).double()
+            opt, sched = hrnet_train.build_semseg_optimizer(m, BASE_LR, MAX_ITERS)
+            metrics = hrnet_train.make_semseg_train_step(m, opt, sched)(
+                images.to(dtype), torch.from_numpy(labels))
+            out["port32" if dtype == torch.float32 else "port64"] = (
+                *_convert(m), {k: float(v) for k, v in metrics.items()})
+            if dtype == torch.float32:
+                out["opt"] = opt
+    finally:
+        for thread in threads:
+            thread.join()
+    if failures:
+        raise failures[0]
+    out["jax32"], out["jax64"] = jax_out[jnp.float32], jax_out[jnp.float64]
+    return out
 
 
 def test_loss_and_accuracy_match_jax(steps):
-    (_, _, got), (_, _, want), *_ = steps
+    got, want = steps["port32"][2], steps["jax32"][2]
     for k in ("loss", "acc"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
     assert 0 < want["acc"] < 1 and np.isfinite(want["loss"])
@@ -144,54 +198,67 @@ def _leaf_errors(got, want):
     return errs
 
 
-# float32 noise of a BatchNorm bias whose gradient cancels, against the
-# float64 step: the port's largest measured 5.9e-3 of the tensor's largest
-# value (stage 4's first block, bn1), JAX's up to 1.7e-3 (layer1's last bn1)
+# the two float64 steps, each leaf against the largest magnitude of JAX's
+# (measured: parameters 2.3e-13, BatchNorm stats 4.8e-14)
+FLOAT64_AGREE = 1e-10
+# float32 noise against JAX's float64 step beyond twice JAX's own, fixed by
+# name: a BatchNorm bias whose gradient cancels (measured: the port's 5.9e-3
+# on stage 4's first block bn1, where JAX's is 2.3e-5), any other tensor (the
+# convolution before that bn1: 1.8e-5 against JAX's 8.2e-8)
 CANCELLING_NOISE = 1e-2
-# the float32 noise of any other tensor of the step, against float64 (the
-# largest measured: 1.8e-5, the convolution before that bn1)
 FLOAT32_NOISE = 1e-4
 
 
-def _hold(got, want, ref):
-    """Each leaf within 1e-5 of its largest magnitude of JAX's; where float32
-    noise is larger than that, within twice JAX's own distance from the
-    float64 step (plus 1e-5) or within FLOAT32_NOISE of it, or, for a
-    BatchNorm bias whose gradient cancels, within CANCELLING_NOISE of it. Returns the
-    errors and the leaves held to float64, with (port, JAX) errors."""
+def _noise_bound(key):
+    return CANCELLING_NOISE if "bn" in key and key.endswith("['bias']") else FLOAT32_NOISE
+
+
+def _hold(steps, part):
+    """Each leaf of the port's float32 step within twice JAX's float32
+    distance from JAX's float64 step plus 1e-5, or within its name's float32
+    noise bound of it; the port's float64 step within FLOAT64_AGREE of JAX's
+    float64 step; the port's summed squared float32 error at most twice
+    JAX's. Returns the errors against JAX's float32 step."""
+    got, want, ref, got64 = (steps[k][part] for k in ("port32", "jax32", "jax64", "port64"))
+    port_err, jax_err = _leaf_errors(got, ref), _leaf_errors(want, ref)
+    agree64 = _leaf_errors(got64, ref)
+    beyond = {}
+    for key, e in port_err.items():
+        assert agree64[key] <= FLOAT64_AGREE, (key, agree64[key])
+        if e > 2 * jax_err[key] + 1e-5:
+            assert e <= _noise_bound(key), (key, e, jax_err[key])
+            beyond[key] = (e, jax_err[key])
+    assert sum(e * e for e in port_err.values()) <= 2 * sum(e * e for e in jax_err.values())
     errs = _leaf_errors(got, want)
-    noisy = {}
-    for path, w in jax.tree_util.tree_leaves_with_path(want):
-        key = jax.tree_util.keystr(path)
-        if errs[key] <= 1e-5:
-            continue
-        r, scale = _leaf(ref, path), np.abs(w).max()
-        port_err = np.abs(_leaf(got, path) - r).max() / scale
-        jax_err = np.abs(w - r).max() / scale
-        if port_err > max(2 * jax_err + 1e-5, FLOAT32_NOISE):
-            assert key.endswith("['bias']") and "bn" in key and port_err <= CANCELLING_NOISE, \
-                (key, errs[key], port_err, jax_err)
-        noisy[key] = (float(port_err), float(jax_err))
-    print(f"{len(noisy)} of {len(errs)} leaves beyond 1e-5 of JAX's, held to float64: {noisy}")
-    return errs, noisy
+    print(f"{sum(e > 1e-5 for e in errs.values())} of {len(errs)} leaves beyond 1e-5 of "
+          f"JAX's float32 step; float64 steps apart by {max(agree64.values()):.2e}; beyond "
+          f"twice JAX's float32 noise (port, JAX): {beyond}")
+    return errs
 
 
 def test_updated_parameters_match_jax(steps):
-    (got, _, _), (want, _, _), _, (ref, _) = steps
-    errs, noisy = _hold(got, want, ref)
-    assert len(errs) > 300 and len(noisy) < len(errs) // 2
+    errs = _hold(steps, 0)
+    assert len(errs) > 300 and sum(e <= 1e-5 for e in errs.values()) > len(errs) // 2
 
 
 def test_batchnorm_stats_match_jax(steps):
-    (_, got, _), (_, want, _), _, (_, ref) = steps
-    errs, noisy = _hold(got, want, ref)
-    assert len(noisy) < len(errs) // 10
+    errs = _hold(steps, 1)
+    assert sum(e <= 1e-5 for e in errs.values()) > 0.9 * len(errs)
     # the stats moved: flax's momentum 0.9 from mean 0, variance 1
-    assert np.abs(want["cbr_bn"]["mean"]).max() > 0
+    assert np.abs(steps["jax32"][1]["cbr_bn"]["mean"]).max() > 0
+
+
+def test_float64_steps_agree(steps):
+    (got, got_stats, got_m), (want, want_stats, want_m) = steps["port64"], steps["jax64"]
+    np.testing.assert_allclose(got_m["loss"], want_m["loss"], rtol=1e-12)
+    # the port's accuracy is a float32 ratio of counts
+    np.testing.assert_allclose(got_m["acc"], want_m["acc"], rtol=1e-7)
+    for g, w in ((got, want), (got_stats, want_stats)):
+        assert max(_leaf_errors(g, w).values()) <= FLOAT64_AGREE
 
 
 def test_poly_schedule_and_optimizer_steps_equal_jax(steps):
-    *_, opt, _ = steps
+    opt = steps["opt"]
     jsched = jax_train.poly_lr_schedule(BASE_LR, MAX_ITERS)
     sched = hrnet_train.poly_lr_schedule(BASE_LR, MAX_ITERS)
     for s in (0, 1, 50, 99, 100, 150):

@@ -1,7 +1,8 @@
 """Port parity, the detector's training loss: mde_tpu_torch.offline's
 `CascadeMaskRCNN.compute_losses` (full Swin-B, FPN, RPN, the three cascade
 stages and mask heads) against mde_tpu.offline's, and the port's AdamW
-recipe against `detection_data.py`'s (CPU, float32).
+recipe against `detection_data.py`'s (CPU, float32; bfloat16 in
+tests/test_torch_port_offline_losses_bf16.py).
 
 The JAX model is seeded from the port's state_dict through its own
 converter (`convert_detector`, with the two layout fixes of
@@ -33,13 +34,15 @@ from mde_tpu.offline import cascade_rcnn as jax_rcnn
 from mde_tpu.offline import detection_data as jax_data
 from mde_tpu.offline.swin_convert import convert_detector
 from mde_tpu_torch.offline import cascade_rcnn, detection_data
-from mde_tpu_torch.offline.layers import BatchNorm2d, seeded
+from mde_tpu_torch.offline.layers import seeded
 
 torch.set_num_threads(4)
 
 HW = (64, 96)
 NUM_SAMPLES = 64
 G, G_VALID = 8, 5
+# the RPN's anchors over the four FPN levels and the pooled fifth (1 x 2)
+N_ANCHORS = sum(3 * (HW[0] // s) * (HW[1] // s) for s in (4, 8, 16, 32)) + 3 * 1 * 2
 
 
 def _to_jax_layout(sd):
@@ -97,16 +100,8 @@ def _jax_draws(key, n_anchors):
     return [torch.from_numpy(np.array(d)) for d in out]
 
 
-@pytest.fixture(scope="module")
-def setup():
-    model = seeded(lambda: cascade_rcnn.CascadeMaskRCNN(), 0)
-    params, stats = _convert(_to_jax_layout(model.state_dict()))
-    variables = {"params": jax.tree_util.tree_map(jnp.asarray, params),
-                 "batch_stats": jax.tree_util.tree_map(jnp.asarray, stats)}
-    x = np.random.default_rng(1).standard_normal((1, *HW, 3), dtype=np.float32)
-    boxes, labels, valid, masks = _gt()
-    jmodel = jax_rcnn.CascadeMaskRCNN(num_classes=100, dtype=jnp.float32)
-    key = jax.random.PRNGKey(3)
+def _jax_losses(jmodel, variables, x, boxes, labels, valid, masks, key):
+    """JAX's compute_losses under jax.jit -> ({loss: float}, batch_stats)."""
 
     @jax.jit
     def losses_fn(v, x, b, l, m, gm, k):
@@ -115,12 +110,27 @@ def setup():
                             mutable=["batch_stats"])
 
     want, mutated = losses_fn(variables, x, boxes, labels, valid, masks.astype(np.float32), key)
-    n_anchors = sum(3 * (HW[0] // s) * (HW[1] // s) for s in (4, 8, 16, 32)) + 3 * 1 * 2
-    draws = _jax_draws(key, n_anchors)
-    inputs = (torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(boxes),
-              torch.from_numpy(labels).long(), torch.from_numpy(valid), torch.from_numpy(masks))
-    return model, params, {k: float(v) for k, v in want.items()}, mutated["batch_stats"], \
-        draws, inputs
+    return {k: float(v) for k, v in want.items()}, mutated["batch_stats"]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    model = seeded(lambda: cascade_rcnn.CascadeMaskRCNN(), 0)
+    params, stats = _convert(_to_jax_layout(model.state_dict()))
+    variables = {"params": jax.tree_util.tree_map(jnp.asarray, params),
+                 "batch_stats": jax.tree_util.tree_map(jnp.asarray, stats)}
+    x = np.random.default_rng(1).standard_normal((1, *HW, 3), dtype=np.float32)
+    boxes, labels, valid, masks = _gt()
+    key = jax.random.PRNGKey(3)
+    want, want_stats = _jax_losses(jax_rcnn.CascadeMaskRCNN(num_classes=100, dtype=jnp.float32),
+                                   variables, x, boxes, labels, valid, masks, key)
+    draws = _jax_draws(key, N_ANCHORS)
+    return model, params, want, want_stats, draws, _torch_inputs(x, boxes, labels, valid, masks)
+
+
+def _torch_inputs(x, boxes, labels, valid, masks):
+    return (torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(boxes),
+            torch.from_numpy(labels).long(), torch.from_numpy(valid), torch.from_numpy(masks))
 
 
 def _uniform(draws):
@@ -137,7 +147,7 @@ def test_losses_and_bn_stats_match_jax(setup):
     model, _, want, want_stats, draws, inputs = setup
     model.train()
     got = model.compute_losses(*inputs, _uniform(draws), HW, NUM_SAMPLES)
-    got = {k: float(v) for k, v in got.items()}
+    got = {k: float(v.detach()) for k, v in got.items()}
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
@@ -165,7 +175,7 @@ def test_one_optimizer_step_lowers_the_total(setup):
         sched.step()
         with torch.no_grad():
             after = model.compute_losses(*inputs, _uniform(draws), HW, NUM_SAMPLES)["total"]
-        assert float(after) < float(total), (float(after), float(total))
+        assert float(after) < float(total.detach()), (float(after), float(total.detach()))
     finally:
         model.load_state_dict(before)
 
