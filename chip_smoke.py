@@ -7,7 +7,9 @@
 
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. toolchain: torch, CUDA, nvcc, device capability, triton, card and power,
-     and whether matplotlib and scipy are there (the figures will need them)
+     and whether matplotlib and scipy are there (the port needs scipy, for
+     the colour table and the Sobel edges, and no matplotlib: it colours
+     its pictures from its own tables)
   2. build the kernels of mde_tpu_torch/csrc with nvcc, one process per
      source, all at once (bins_head.cu: the float32 head forward and
      backward on the CUDA cores; bins_head_tc.cu: the bfloat16 head forward
@@ -66,14 +68,19 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      parse_cli(params/args_train_nyu_efficientnet-b1.txt, --bs 16 --epochs
      2 --validate_every 6, the tree's paths) and main_train(max_steps=12):
      the flagship through the native loader, the prefetcher, the driver,
-     two validations of the 16 frames at batch 1 in float32, latest and best
-     checkpoints; exactly 12 x (1, 2, 1) bf16 head forward / backward and
-     chamfer launches and one float32 head forward an eval frame, finite
-     losses, the JSONL's tags and steps at the JAX driver's cadence; then
-     --resume latest with max_steps=14: epoch 1, update 12, two steps, the
-     learning rate of OneCycle's update 13. Prints the driver's median step
-     beside phase 5's synthetic step, the loader's time for one batch of 16
-     alone, the validation ms a frame, the checkpoint save ms and bytes, the
+     two validations of the 16 frames at batch 1 in the training's bf16,
+     latest and best checkpoints, the qualitative figures (Train/QualSamples
+     at step 0, Test/QualSamples at each validation); exactly 12 x (1, 2,
+     1) bf16 head forward / backward and chamfer launches, one bf16 head
+     forward an eval frame and one a figure, no float32 one, finite losses,
+     the JSONL's tags and steps at the JAX driver's cadence, figures
+     included, each figure's PNG decoded at its panels' size (2 x 3 cells of
+     416x544, the prediction 208x272); then --resume latest with
+     max_steps=14: epoch 1, update 12, two steps, the learning rate of
+     OneCycle's update 13, the validation and its figure. Prints the
+     driver's median step beside phase 5's synthetic step, the loader's
+     time for one batch of 16 alone, the validation ms a frame, each
+     figure's forward and host ms, the checkpoint save ms and bytes, the
      peak device memory and (with --profile) the device's busy share over
      steps 3-8 through the driver
   9. evaluation, data parallelism, remat and the pretrained backbone, on the
@@ -156,10 +163,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
          encoder / decoder files and --result-dir: each prediction equal to a
          direct hrnet_multiscale_inference call, mIoU and accuracy, the RGB
          grids written
- 12. one JSON line on the kernels (launches summed over the main paths:
+ 12. CSAIL's semantic-segmentation zoo and the infer demo, seeded weights:
+     (a) each published ADE20K combination the JAX zoo builds
+         (resnet18/50/101dilated-ppm_deepsup, mobilenetv2dilated-
+         c1_deepsup, resnet18dilated-c1_deepsup, resnet50/101-upernet) and
+         resnext101-upernet, at its published widths with 150 classes:
+         float32 card against CPU at 128x160 (log-probabilities, 1e-4 of
+         the largest), then bf16 on the NYU frame at 480x640 (softmax at the
+         frame's size): ms a frame, device events, peak
+     (b) make_semseg_train_step of resnet50dilated-ppm_deepsup, float32,
+         batch 2 of 480x640, 5 steps: finite, falling loss; step ms, peak,
+         busy share
+     (c) predict_pil(visualized=True) and `python -m mde_tpu_torch.infer`
+         with a seeded checkpoint in the demo's layout: the coloured
+         picture and ./thingy.png of the frame's size, with no matplotlib
+         imported
+ 13. one JSON line on the kernels (launches summed over the main paths:
      serving, training, the eval and cue training runs, the train CLI, the
-     B5 evaluation, both DDP ranks, the DDP driver run, the remat steps and
-     phase 10's cue training;
+     B5 evaluation, both DDP ranks, the DDP driver run, the remat steps,
+     phase 10's cue training and phase 12's request;
      the float32 head backward, which no main path runs, from the float32
      step checks), then the result line.
 
@@ -1206,16 +1228,19 @@ def nyu_tree(root, n_train=CLI_TRAIN_FRAMES, n_eval=CLI_EVAL_FRAMES):
 
 
 def driver_cadence(first_step, max_steps):
-    """(tag, step) of every scalar mde_tpu/train/driver.py's epoch loop and
-    `bookkeep` write from `first_step` to `max_steps`, figures aside."""
+    """(tag, step) of every scalar and figure mde_tpu/train/driver.py's epoch
+    loop and `bookkeep` write from `first_step` to `max_steps`."""
     from mde_tpu_torch.ops import METRIC_NAMES
     out, step = [("Epoch", first_step)], first_step
     while True:
         if step % 5 == 0:
             out += [("Train/Loss", step), ("Train/SILog", step), ("Train/ChamferLoss", step)]
+        if step % 500 == 0:
+            out.append(("Train/QualSamples", step))
         step += 1
         if step % CLI_VALIDATE_EVERY == 0 or step >= max_steps:
-            out += [("Test/SILog", step)] + [(f"Metrics/{k}", step) for k in METRIC_NAMES]
+            out += ([("Test/SILog", step)] + [(f"Metrics/{k}", step) for k in METRIC_NAMES]
+                    + [("Test/QualSamples", step)])
         if step >= max_steps:
             return out
         if step % CLI_STEPS_PER_EPOCH == 0:
@@ -1230,10 +1255,11 @@ class DriverProbe:
 
     def __init__(self, driver, profile):
         self.driver, self.profile = driver, profile
-        self.stamps, self.validations, self.saves = [], [], []
+        self.stamps, self.validations, self.saves, self.figures = [], [], [], []
         self.prof = self.prof_wall_us = None
         self.real = {k: getattr(driver, k) for k in ("make_train_step", "validate",
-                                                     "save_checkpoint")}
+                                                     "save_checkpoint", "make_figure_forward",
+                                                     "log_qual_figure")}
 
     def __enter__(self):
         def make_train_step(*a, **k):
@@ -1265,8 +1291,27 @@ class DriverProbe:
             self.saves.append(((time.perf_counter() - t0) * 1e3, os.path.getsize(path)))
             return path
 
+        def make_figure_forward(*a, **k):
+            forward = self.real["make_figure_forward"](*a, **k)
+
+            def timed(*x):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred = forward(*x)
+                torch.cuda.synchronize()
+                self.figures.append([(time.perf_counter() - t0) * 1e3])
+                return pred
+            return timed
+
+        def log_qual_figure(*a, **k):
+            t0 = time.perf_counter()
+            self.real["log_qual_figure"](*a, **k)
+            self.figures[-1].append((time.perf_counter() - t0) * 1e3)
+
         for name, fn in (("make_train_step", make_train_step), ("validate", validate),
-                         ("save_checkpoint", save_checkpoint)):
+                         ("save_checkpoint", save_checkpoint),
+                         ("make_figure_forward", make_figure_forward),
+                         ("log_qual_figure", log_qual_figure)):
             setattr(self.driver, name, fn)
         return self
 
@@ -1291,6 +1336,30 @@ class DriverProbe:
         ends = dict(self.stamps)
         return {i: (ends[i] - ends[i - 1]) * 1e3 for i in range(first, last + 1)
                 if i - 1 in ends and i not in skip}
+
+
+def check_figures(events, exp_dir):
+    """Each figure line of the JSONL names its PNG in the experiment
+    directory, which the port's decoder reads at the size of its panels:
+    2 rows x 3 columns (RGB, GT, prediction) in cells of the crop's size
+    (the prediction, at the model's half resolution, sits in its cell's top
+    left on white), GUTTER pixels between cells."""
+    from mde_tpu_torch.data import read_png
+    from mde_tpu_torch.utils.graphs import GUTTER
+    figures = [e for e in events if "figure" in e]
+    h, w = TRAIN_HW
+    for e in figures:
+        path = Path(e["figure"])
+        check(path == exp_dir / f"{e['tag'].replace('/', '_')}_{e['step']}.png",
+              f"train CLI: figure {path}")
+        png = read_png(path)
+        check(png.shape == (2 * h + GUTTER, 3 * w + 2 * GUTTER, 3) and png.dtype == np.uint8,
+              f"train CLI: {path.name}: {png.shape} {png.dtype}")
+        pred = png[:h, 2 * (w + GUTTER):]
+        check((pred[h // 2:] == 255).all() and (pred[:, w // 2:] == 255).all()
+              and (pred[:h // 2, :w // 2] != 255).any(axis=-1).mean() > 0.5,
+              f"train CLI: {path.name}: the prediction's panel is not 208x272")
+    return figures
 
 
 def loader_batch_ms(args):
@@ -1409,9 +1478,12 @@ def train_cli(root, profile_dir, synthetic_ms):
         run_s = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    expected = {"bins_head_fwd": 2 * CLI_EVAL_FRAMES, "bins_head_bwd": 0,
-                "bins_head_tc_fwd": CLI_STEPS, "bins_head_tc_bwd": 2 * CLI_STEPS,
-                "chamfer": CLI_STEPS}
+    # bf16: each step, each eval frame of the two validations (the training's
+    # compute dtype) and each of the three figures (Train/QualSamples at 0,
+    # Test/QualSamples at both validations)
+    expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
+                "bins_head_tc_fwd": CLI_STEPS + 2 * CLI_EVAL_FRAMES + 3,
+                "bins_head_tc_bwd": 2 * CLI_STEPS, "chamfer": CLI_STEPS}
     print(f"train CLI: main_train(max_steps={CLI_STEPS}) in {run_s:.2f} s, {state.step} "
           f"steps; launches {counts}, expected {expected}")
     check(state.step == CLI_STEPS, "the driver did not take its steps")
@@ -1422,8 +1494,11 @@ def train_cli(root, profile_dir, synthetic_ms):
         events = [json.loads(line) for line in f]
     check([(e["tag"], e["step"]) for e in events] == driver_cadence(0, CLI_STEPS),
           "train CLI: the JSONL's tags and steps are not the JAX driver's")
-    check(all(np.isfinite(e["value"]) for e in events), "train CLI: a logged value is "
-          "not finite")
+    check(all(np.isfinite(e["value"]) for e in events if "value" in e),
+          "train CLI: a logged value is not finite")
+    figures = check_figures(events, exp_dir)
+    check(len(figures) == len(probe.figures) == 3 and all(len(f) == 2 for f in probe.figures),
+          "train CLI: three figures expected")
     losses = [(e["step"], round(e["value"], 6)) for e in events if e["tag"] == "Train/Loss"]
     latest = sorted(exp_dir.glob("*_latest.pt"))
     best = sorted(exp_dir.glob("*_best.pt"))
@@ -1446,8 +1521,12 @@ def train_cli(root, profile_dir, synthetic_ms):
           + ", ".join(f"{i}: {v:.3f}" for i, v in steps.items())
           + f") against phase 5's synthetic on-device step {synthetic_ms:.3f} ms "
           f"({100 * (median / synthetic_ms - 1):+.1f}%)")
+    print("train CLI: figures " + ", ".join(f"{e['tag']}@{e['step']}" for e in figures)
+          + ": forward (synchronized) "
+          + ", ".join(f"{f[0]:.3f}" for f in probe.figures) + " ms; host (copy, panels, PNG) "
+          + ", ".join(f"{f[1]:.3f}" for f in probe.figures) + " ms")
     print(f"train CLI: validation {CLI_EVAL_FRAMES} frames of {FRAME_HW[0]}x{FRAME_HW[1]} "
-          f"at batch 1, float32: " + ", ".join(f"{v:.3f}" for v in validate_ms)
+          f"at batch 1, {args.compute_dtype}: " + ", ".join(f"{v:.3f}" for v in validate_ms)
           + " ms a frame; checkpoint saves " + ", ".join(f"{v:.1f}" for v in save_ms)
           + f" ms, {probe.saves[0][1]} bytes each; max_memory_allocated {peak} bytes")
     if probe.prof is not None:
@@ -1472,8 +1551,9 @@ def train_cli(root, profile_dir, synthetic_ms):
     state = driver.main_train(args, max_steps=CLI_RESUME_STEPS, interactive=False)
     resumed = read_counts()
     n = CLI_RESUME_STEPS - CLI_STEPS
-    expected = {"bins_head_fwd": CLI_EVAL_FRAMES, "bins_head_bwd": 0,
-                "bins_head_tc_fwd": n, "bins_head_tc_bwd": 2 * n, "chamfer": n}
+    expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
+                "bins_head_tc_fwd": n + CLI_EVAL_FRAMES + 1, "bins_head_tc_bwd": 2 * n,
+                "chamfer": n}
     lr = state.optimizer.optimizer.param_groups[0]["lr"]
     want_lr = onecycle_lr_schedule(args.lr, CLI_EPOCHS * CLI_STEPS_PER_EPOCH,
                                    div_factor=args.div_factor,
@@ -1489,8 +1569,9 @@ def train_cli(root, profile_dir, synthetic_ms):
     check(lr == want_lr, "the resumed run's learning rate is not OneCycle's")
     check([(e["tag"], e["step"]) for e in tail] == driver_cadence(CLI_STEPS, CLI_RESUME_STEPS)
           and tail[0]["value"] == CLI_STEPS // CLI_STEPS_PER_EPOCH
-          and all(np.isfinite(e["value"]) for e in tail),
+          and all(np.isfinite(e["value"]) for e in tail if "value" in e),
           "the resumed run's JSONL is not the JAX driver's from the saved step")
+    check(len(check_figures(tail, exp_dir)) == 1, "the resumed run drew no Test figure")
     del state
     torch.cuda.empty_cache()
     return counts, resumed
@@ -1836,8 +1917,9 @@ def nccl_main_train(root):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    expected = {"bins_head_fwd": CLI_EVAL_FRAMES, "bins_head_bwd": 0, "bins_head_tc_fwd": 2,
-                "bins_head_tc_bwd": 4, "chamfer": 2}
+    # bf16: 2 steps, the validation's frames and 2 figures (steps 0 and 2)
+    expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
+                "bins_head_tc_fwd": 2 + CLI_EVAL_FRAMES + 2, "bins_head_tc_bwd": 4, "chamfer": 2}
     print(f"DDP through main_train: --distributed, WORLD_SIZE 1, backend {seen.get('backend')}, "
           f"wrapper {type(state.ddp).__name__}: {state.step} steps and a validation of "
           f"{CLI_EVAL_FRAMES} frames in {run_s:.2f} s; launches {counts}, expected {expected}")
@@ -2302,8 +2384,11 @@ def offline_train(root, tree, card):
              "semantic channels' largest": float(sem.abs().max()),
              "instance channels' largest": float(inst.abs().max()),
              "area channel's largest": float(areas[:, :1].abs().max())}
-    expected = {"bins_head_fwd": OFFLINE_EVAL_FRAMES, "bins_head_bwd": 0, "bins_head_tc_fwd": 2,
-                "bins_head_tc_bwd": 4, "chamfer": 2}
+    # bf16: 2 steps, the validation's frames and 2 figures, with the cue
+    # columns (steps 0 and 2)
+    expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
+                "bins_head_tc_fwd": 2 + OFFLINE_EVAL_FRAMES + 2, "bins_head_tc_bwd": 4,
+                "chamfer": 2}
     print(f"offline -> training [{card}]: {OFFLINE_PARAMS_FILE} --bs 2 on the generated side "
           f"files: {state.step} steps, losses {seen['loss']}, first batch {found}; launches "
           f"{counts}, expected {expected}")
@@ -2857,6 +2942,174 @@ def offline_training(root, card, profile_dir):
     _SEEDED.clear()
 
 
+# --- phase 12: the semantic-segmentation zoo and the infer demo --------------
+
+# CSAIL's published ADE20K combinations that the JAX zoo builds
+# (mde_tpu/offline/semseg_zoo.py), plus resnext101-upernet
+ZOO = (("resnet18dilated", "ppm_deepsup"), ("resnet50dilated", "ppm_deepsup"),
+       ("resnet101dilated", "ppm_deepsup"), ("mobilenetv2dilated", "c1_deepsup"),
+       ("resnet18dilated", "c1_deepsup"), ("resnet50", "upernet"), ("resnet101", "upernet"),
+       ("resnext101", "upernet"))
+ZOO_CLASSES = 150
+ZOO_SMALL_HW = (128, 160)  # the card against the CPU, float32
+ZOO_TOL = 1e-4  # of the largest CPU log-probability
+ZOO_STEP_ARCH = ("resnet50dilated", "ppm_deepsup")
+ZOO_STEPS = 5
+
+
+def nyu_frame():
+    """The repo's NYU frame, normalised, (1, 3, 480, 640) float32 on the card."""
+    from mde_tpu_torch.data import read_rgb
+    from mde_tpu_torch.data.transforms import normalize_image
+    img = normalize_image(read_rgb(CLASSROOM).astype(np.float32) / 255.0)
+    return torch.from_numpy(img).permute(2, 0, 1)[None].contiguous().cuda()
+
+
+def zoo_forwards(card):
+    """Phase 12a: each ZOO model at its published widths, 150 classes,
+    seeded weights: float32 card against CPU at ZOO_SMALL_HW, then bf16
+    (`to_compute_dtype`, as generate_semantics) on the NYU frame: ms a frame
+    (synchronized, median of 5 after a warm-up), device events, peak."""
+    from mde_tpu_torch.offline.layers import seeded, to_compute_dtype
+    from mde_tpu_torch.offline.semseg_zoo import SegmentationModel
+
+    frame = nyu_frame()
+    small = torch.randn((1, 3, *ZOO_SMALL_HW), generator=torch.Generator().manual_seed(SEED))
+    rows = {}
+    for arch in ZOO:
+        model = seeded(lambda: SegmentationModel(*arch, ZOO_CLASSES), SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.no_grad():
+            want = model(small)
+            got = model.cuda()(small.cuda())
+        err = rel_err(got, want)
+        check(torch.isfinite(got).all().item() and err <= ZOO_TOL,
+              f"zoo {'-'.join(arch)}: card against CPU {err:.3e}")
+        model = to_compute_dtype(model, torch.bfloat16)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def forward():
+            with torch.inference_mode():
+                return model(frame, seg_size=FRAME_HW)
+
+        scores = forward()  # warm-up: cuDNN's heuristics
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = forward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        events, _ = device_event_count(forward)
+        check(scores.shape == (1, ZOO_CLASSES, *FRAME_HW) and torch.isfinite(scores).all().item()
+              and abs(scores.sum(1).mean().item() - 1) < 1e-3,
+              f"zoo {'-'.join(arch)}: the bf16 scores")
+        rows["-".join(arch)] = (statistics.median(ms), events, peak)
+        print(f"zoo [{card}]: {'-'.join(arch)}, {n_params} parameters: float32 card against "
+              f"CPU at {ZOO_SMALL_HW[0]}x{ZOO_SMALL_HW[1]} {err:.3e} (tolerance {ZOO_TOL}); "
+              f"bf16 at {FRAME_HW[0]}x{FRAME_HW[1]}: median {statistics.median(ms):.3f} ms a "
+              f"frame (all: {', '.join(f'{v:.3f}' for v in ms)}), {events} device events, "
+              f"peak {peak} bytes above the weights")
+        del model, scores
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_train_step(card):
+    """Phase 12b: make_semseg_train_step of resnet50dilated + ppm_deepsup,
+    float32, batch 2 of 480x640, labels at 60x80 with a -1 border, SGD +
+    poly, ZOO_STEPS steps on one batch: finite, the last loss below the
+    first; step ms, peak, a profiled step's busy share."""
+    from mde_tpu_torch.offline.hrnet_train import build_semseg_optimizer, make_semseg_train_step
+    from mde_tpu_torch.offline.layers import seeded
+    from mde_tpu_torch.offline.semseg_zoo import SegmentationModel
+
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn((2, 3, *FRAME_HW), generator=g).cuda()
+    labels = torch.randint(0, ZOO_CLASSES, (2, FRAME_HW[0] // 8, FRAME_HW[1] // 8),
+                           generator=g).cuda()
+    labels[:, 0] = -1
+    model = seeded(lambda: SegmentationModel(*ZOO_STEP_ARCH, ZOO_CLASSES), SEED).cuda()
+    opt, sched = build_semseg_optimizer(model)
+    step = make_semseg_train_step(model, opt, sched)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(ZOO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(x, labels)["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    _, n_events, busy_ms, wall_ms, _ = profiled(lambda: step(x, labels)["loss"].item())
+    print(f"zoo step [{card}]: {'-'.join(ZOO_STEP_ARCH)}, float32, batch 2 of "
+          f"{FRAME_HW[0]}x{FRAME_HW[1]}: losses {[round(v, 6) for v in losses]}; step ms "
+          + ", ".join(f"{v:.3f}" for v in ms) + f" (median of steps 2-{ZOO_STEPS} "
+          f"{statistics.median(ms[1:]):.3f}); peak {peak} bytes; a profiled step: wall "
+          f"{wall_ms:.3f} ms, device busy {100 * busy_ms / wall_ms:.1f}%, {n_events} device "
+          f"events")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"zoo step: the loss did not fall: {losses}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def infer_demo(root, gen, card):
+    """Phase 12c: `predict_pil(visualized=True)` and `python -m
+    mde_tpu_torch.infer` on the NYU frame with a seeded checkpoint in the
+    layout the demo loads ({"model": state_dict}); both write their picture
+    with no matplotlib: the colorized (480, 640, 3) uint8 array, and
+    ./thingy.png of the frame's size in the demo's working directory.
+    Returns the launches of the in-process request."""
+    from mde_tpu_torch.data import read_png, read_rgb
+    from mde_tpu_torch.infer import InferenceHelper
+    from mde_tpu_torch.models import UnetAdaptiveBins
+
+    model = UnetAdaptiveBins(n_bins=N_BINS, min_val=1e-3, max_val=10.0,
+                             encoder_name="efficientnet-b1", fused_head=True)
+    out = root / "infer"
+    out.mkdir()
+    ckpt = out / "AdaBins_nyu_seeded.pt"
+    torch.save({"model": seeded_state_dict(model, gen)}, ckpt)
+    helper = InferenceHelper(dataset="nyu", checkpoint_path=str(ckpt), device="cuda")
+    reset_counts()
+    _, pred, viz = helper.predict_pil(read_rgb(CLASSROOM), visualized=True)
+    counts = read_counts()
+    check(viz.shape == (*FRAME_HW, 3) and viz.dtype == np.uint8 and pred.shape == (1, *FRAME_HW, 1)
+          and np.isfinite(pred).all(), "predict_pil(visualized=True): the picture")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mde_tpu_torch.infer", str(CLASSROOM), str(ckpt)],
+                          cwd=out, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, stdin=subprocess.DEVNULL, timeout=300)
+    demo_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m mde_tpu_torch.infer: {proc.stderr[-2000:]}")
+    png = read_png(out / "thingy.png")
+    check(png.shape == (*FRAME_HW, 3) and png.dtype == np.uint8 and len(np.unique(png)) > 8,
+          f"the demo's thingy.png: {png.shape} {png.dtype}")
+    check("matplotlib" not in sys.modules, "the port imported matplotlib")
+    print(f"infer [{card}]: predict_pil(visualized=True): {viz.shape} {viz.dtype}, launches "
+          f"{counts}; python -m mde_tpu_torch.infer in {demo_s:.2f} s: "
+          f"{proc.stdout.strip().splitlines()[-1]}; thingy.png {png.shape} {png.dtype}; "
+          f"matplotlib installed {importlib.util.find_spec('matplotlib') is not None}, "
+          f"imported False")
+    check(counts == {**{k: 0 for k in counts}, "bins_head_fwd": 1},
+          f"predict_pil launches {counts}")
+    return counts
+
+
+def semseg_zoo_and_demo(root, gen, card):
+    """Phase 12; returns the launches of the demo's request."""
+    t0 = time.perf_counter()
+    zoo_forwards(card)
+    zoo_train_step(card)
+    counts = infer_demo(root, gen, card)
+    print(f"zoo and demo [{card}]: phase 12 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2868,6 +3121,7 @@ def main(argv):
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
+    run_t0 = time.perf_counter()
     from mde_tpu_torch.data import native
     from mde_tpu_torch.kernels import bins_head, build, chamfer
     from mde_tpu_torch.models import build_model
@@ -2956,10 +3210,12 @@ def main(argv):
         pretrained_backbone(gen, root)
         add(offline(root, card))
         offline_training(root, card, args.profile)
+        add(semseg_zoo_and_demo(root, gen, card))
     print(f"chamfer_wide_kernel ({WIDE_BINS} bins, on no main path: every params file has 256 "
           f"bins): " + json.dumps(wide))
     print(f"launches over the main paths (the float32 head backward from the step "
           f"checks): {launches}")
+    print(f"chip_smoke: the whole run in {time.perf_counter() - run_t0:.1f} s [{card}]")
     check(all(launches.values()), f"a kernel was launched no time: {launches}")
 
     head = "mde_tpu/kernels/bins_head.py"

@@ -22,25 +22,36 @@ layout module for module so each port can be held against its counterpart:
   checkpoint.py  training checkpoints (.pt, the reference layout), flax trees
              / reference .pt files -> port state_dicts
   train/     optimizer (AdamW + OneCycle + clip), train state, train step,
-             eval step and validate, the driver (main_train, with DDP and
-             --pretrained_backbone) and the CLI (python -m mde_tpu_torch.train)
+             eval step (in the training's compute dtype) and validate, the
+             driver (main_train, with DDP, --pretrained_backbone and the
+             qualitative figures) and the CLI (python -m mde_tpu_torch.train)
   parallel/  data parallelism: the process group, the in-model collectives
              (global-batch BatchNorm and SILog), shard_batch_size
-  utils/     host-side helpers (colorize, the experiment directory, the
-             scalar logger, running averages)
+  utils/     host-side helpers: colormaps.py (magma and inferno as tables,
+             matplotlib's rule, no matplotlib), graphs.py (the figure grid,
+             the semantic colour table), pointcloud.py (b64_to_pil, the
+             Sobel edges, PointCloudHelper), colorize, the experiment
+             directory, the logger (scalars and figures), running averages
   infer.py   InferenceHelper: the flip-TTA serving forward
   evaluate.py  official-split evaluation (python -m mde_tpu_torch.evaluate)
   offline/   cue generation: HRNetV2-W48 + C1 semantics and Swin-B Cascade
-             Mask R-CNN instances (inference), and the two CLIs that write
-             the cue side files (python -m mde_tpu_torch.offline.generate_*)
+             Mask R-CNN instances, the two CLIs that write the cue side
+             files (python -m mde_tpu_torch.offline.generate_*), their
+             training and evaluation (train_detector, eval_detector,
+             eval_semseg, hrnet_train) and CSAIL's semseg zoo
+             (semseg_zoo.py: ResNet, ResNeXt, MobileNetV2 and HRNetV2
+             encoders; C1, PPM and UPerNet decoders)
 
 Slices ported so far: the serving forward, the training step, the cue
 configurations (AdaBins and noAdaBins, cues at the input or before the mViT)
 through the training step, the eval step and `validate`, training from files
-through the CLI, evaluation, data-parallel training, `--remat encoder`,
-`--pretrained_backbone`, and the offline cue generators' inference. The root script `orbax_to_pt.py` (which needs JAX)
-turns the JAX package's orbax checkpoints into the port's `.pt`. This package imports torch and never jax, flax,
-mde_tpu or PIL.
+through the CLI with its figures, evaluation, data-parallel training,
+`--remat encoder`, `--pretrained_backbone`, the offline cue generators with
+their training and evaluation, the semseg zoo and the demo utilities: all
+of `mde_tpu` but tensor parallelism. The root script `orbax_to_pt.py`
+(which needs JAX) turns the JAX package's orbax checkpoints into the port's
+`.pt`. This package imports torch and never jax, flax, mde_tpu, PIL or
+matplotlib.
 """
 
 __version__ = "0.1.0"

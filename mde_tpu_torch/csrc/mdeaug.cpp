@@ -754,8 +754,7 @@ void upsample_row(const Component& c, int max_h, int max_v, int y, uint8_t* out)
   }
 }
 
-void decode_jpeg(const char* path, uint8_t* out, int out_h, int out_w) {
-  std::vector<uint8_t> d = read_file(path);
+void decode_jpeg(const std::vector<uint8_t>& d, uint8_t* out, int out_h, int out_w) {
   Jpeg j;
   parse_jpeg(d, &j, false);
   if (j.height != out_h || j.width != out_w) fail("JPEG: size differs from its header");
@@ -907,8 +906,8 @@ std::vector<uint8_t> png_rows(const std::vector<uint8_t>& d, const PngInfo& info
 }
 
 // Gray -> uint16 (8-bit values widened), RGB -> uint8 (H, W, 3).
-void decode_png(const char* path, void* out, int out_h, int out_w, int out_channels) {
-  std::vector<uint8_t> d = read_file(path);
+void decode_png(const std::vector<uint8_t>& d, void* out, int out_h, int out_w,
+                int out_channels) {
   PngInfo info = png_header(d);
   if (info.height != out_h || info.width != out_w || info.channels != out_channels ||
       (out_channels != 1 && out_channels != 3))
@@ -926,10 +925,9 @@ void decode_png(const char* path, void* out, int out_h, int out_w, int out_chann
 
 // Any 8-bit JPEG or PNG above to (h, w, 3) uint8 RGB, as PIL's convert("RGB"):
 // grey replicated, alpha dropped. A 16-bit grayscale PNG is refused.
-void decode_rgb(const char* path, uint8_t* out, int out_h, int out_w) {
-  std::vector<uint8_t> d = read_file(path);
+void decode_rgb(const std::vector<uint8_t>& d, uint8_t* out, int out_h, int out_w) {
   if (!is_png(d)) {
-    decode_jpeg(path, out, out_h, out_w);
+    decode_jpeg(d, out, out_h, out_w);
     return;
   }
   PngInfo info = png_header(d);
@@ -946,9 +944,8 @@ void decode_rgb(const char* path, uint8_t* out, int out_h, int out_w) {
   }
 }
 
-// kind, height, width, channels of an image file from its header.
-void image_info(const char* path, int32_t* info) {
-  std::vector<uint8_t> d = read_file(path);
+// kind, height, width, channels of an image from its header.
+void image_info(const std::vector<uint8_t>& d, int32_t* info) {
   if (is_png(d)) {
     PngInfo p = png_header(d);
     info[0] = kPng;
@@ -967,16 +964,17 @@ void image_info(const char* path, int32_t* info) {
 
 // An RGB frame, JPEG or 8-bit RGB PNG, into `out` (resized).
 void decode_rgb_file(const char* path, std::vector<uint8_t>* out, int* h, int* w) {
+  std::vector<uint8_t> d = read_file(path);
   int32_t info[4];
-  image_info(path, info);
+  image_info(d, info);
   if (info[3] != 3) fail(std::string("not an RGB image: ") + path);
   *h = info[1];
   *w = info[2];
   out->resize((size_t)(*h) * (*w) * 3);
   if (info[0] == kJpeg)
-    decode_jpeg(path, out->data(), *h, *w);
+    decode_jpeg(d, out->data(), *h, *w);
   else
-    decode_png(path, out->data(), *h, *w, 3);
+    decode_png(d, out->data(), *h, *w, 3);
 }
 
 // A grayscale PNG (8- or 16-bit) into `out` as uint16 (resized).
@@ -987,7 +985,7 @@ void decode_gray_png_file(const char* path, std::vector<uint16_t>* out, int* h, 
   *h = p.height;
   *w = p.width;
   out->resize((size_t)(*h) * (*w));
-  decode_png(path, out->data(), *h, *w, 1);
+  decode_png(d, out->data(), *h, *w, 1);
 }
 
 // ---------------------------------------------------------- polygon fill
@@ -1185,7 +1183,7 @@ extern "C" {
 // info = (kind: 1 JPEG / 2 PNG, height, width, channels), from the header.
 int mdeaug_image_info(const char* path, int32_t* info, char* err, int errlen) {
   try {
-    image_info(path, info);
+    image_info(read_file(path), info);
     return 0;
   } catch (const DecodeError& e) {
     return report(e, err, errlen);
@@ -1195,7 +1193,7 @@ int mdeaug_image_info(const char* path, int32_t* info, char* err, int errlen) {
 // A one- or three-component JPEG to (h, w, 3) uint8 RGB.
 int mdeaug_decode_jpeg(const char* path, uint8_t* out, int h, int w, char* err, int errlen) {
   try {
-    decode_jpeg(path, out, h, w);
+    decode_jpeg(read_file(path), out, h, w);
     return 0;
   } catch (const DecodeError& e) {
     return report(e, err, errlen);
@@ -1207,7 +1205,7 @@ int mdeaug_decode_jpeg(const char* path, uint8_t* out, int h, int w, char* err, 
 int mdeaug_decode_png(const char* path, void* out, int h, int w, int channels, char* err,
                       int errlen) {
   try {
-    decode_png(path, out, h, w, channels);
+    decode_png(read_file(path), out, h, w, channels);
     return 0;
   } catch (const DecodeError& e) {
     return report(e, err, errlen);
@@ -1217,7 +1215,28 @@ int mdeaug_decode_png(const char* path, void* out, int h, int w, int channels, c
 // Any 8-bit JPEG or PNG kind to (h, w, 3) uint8 RGB, as PIL's convert("RGB").
 int mdeaug_decode_rgb(const char* path, uint8_t* out, int h, int w, char* err, int errlen) {
   try {
-    decode_rgb(path, out, h, w);
+    decode_rgb(read_file(path), out, h, w);
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// mdeaug_image_info and mdeaug_decode_rgb of an image held in memory.
+int mdeaug_image_info_mem(const uint8_t* data, int64_t size, int32_t* info, char* err,
+                          int errlen) {
+  try {
+    image_info(std::vector<uint8_t>(data, data + size), info);
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e, err, errlen);
+  }
+}
+
+int mdeaug_decode_rgb_mem(const uint8_t* data, int64_t size, uint8_t* out, int h, int w,
+                          char* err, int errlen) {
+  try {
+    decode_rgb(std::vector<uint8_t>(data, data + size), out, h, w);
     return 0;
   } catch (const DecodeError& e) {
     return report(e, err, errlen);

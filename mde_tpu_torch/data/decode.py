@@ -9,7 +9,7 @@ with libjpeg's ISLOW IDCT, fancy upsampling and YCbCr->RGB (or one grey
 component), so a frame decodes to the bytes PIL gives, and non-interlaced
 8/16-bit grayscale, 8-bit RGB, grey-alpha and RGBA PNG. `read_rgb` gives
 every 8-bit kind as PIL's `Image.open(...).convert("RGB")`: grey replicated,
-alpha dropped. A file they cannot read raises `IOError` with the decoder's
+alpha dropped; `decode_rgb` does the same for bytes in memory. A file they cannot read raises `IOError` with the decoder's
 message and the file's name; there is no other path. `write_png` writes a
 grayscale (8- or 16-bit) or an 8-bit RGB PNG with Python's zlib.
 """
@@ -68,6 +68,20 @@ def read_rgb(path) -> np.ndarray:
     err = ctypes.create_string_buffer(_ERR_LEN)
     _check(library().mdeaug_decode_rgb(str(path).encode(), out.ctypes.data, h, w, err,
                                        _ERR_LEN), err, path)
+    return out
+
+
+def decode_rgb(data: bytes) -> np.ndarray:
+    """`read_rgb` of an image held in memory (a JPEG's or a PNG's bytes)."""
+    data = bytes(data)
+    info = (ctypes.c_int32 * 4)()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    lib = library()
+    _check(lib.mdeaug_image_info_mem(data, len(data), info, err, _ERR_LEN), err, "image bytes")
+    _, h, w, _ = tuple(info)
+    out = np.empty((h, w, 3), np.uint8)
+    _check(lib.mdeaug_decode_rgb_mem(data, len(data), out.ctypes.data, h, w, err, _ERR_LEN),
+           err, "image bytes")
     return out
 
 

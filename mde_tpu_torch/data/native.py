@@ -62,6 +62,10 @@ def library() -> ctypes.CDLL:
                 "mdeaug_decode_png": ([cstr, ctypes.c_void_p, cint, cint, cint, err, cint],
                                       cint),
                 "mdeaug_decode_rgb": ([cstr, ctypes.c_void_p, cint, cint, err, cint], cint),
+                "mdeaug_image_info_mem": ([ctypes.c_char_p, ctypes.c_int64, _i32p, err, cint],
+                                          cint),
+                "mdeaug_decode_rgb_mem": ([ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                           cint, cint, err, cint], cint),
                 "mdeaug_fill_polygon": ([ctypes.c_void_p, cint, cint, ctypes.c_void_p, cint],
                                         None),
                 "mdeaug_load_augment_batch": (

@@ -88,13 +88,8 @@ def run_evaluation(args, model=None, max_batches=None):
     if args.save_dir is not None:
         os.makedirs(args.save_dir, exist_ok=True)
     eval_step = make_eval_step(args, sem_embedder, inst_embedder)
-    bf16 = getattr(args, "compute_dtype", "float32") == "bfloat16"
     min_d, max_d = float(args.min_depth_eval), float(args.max_depth_eval)
     total_invalid = 0
-
-    def step(*a):
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
-            return eval_step(*a)
 
     def on_batch(batch, pred):
         nonlocal total_invalid
@@ -111,7 +106,7 @@ def run_evaluation(args, model=None, max_batches=None):
             write_png(path, (final[j, ..., 0] * factor).astype("uint16"))
 
     loader = DevicePrefetcher(DepthDataLoader(args, "online_eval"), device)
-    vals, _ = validate(args, step, model, loader, max_batches, on_batch)
+    vals, _ = validate(args, eval_step, model, loader, max_batches, on_batch)
     return vals, total_invalid
 
 

@@ -7,7 +7,8 @@ horizontal-flip TTA averaging, bin-center extraction and 16-bit png saving
 device runs the bins-head kernel once per request.
 
 Run `python -m mde_tpu_torch.infer [image] [checkpoint] [--device cpu]` for
-the demo; it runs on the card unless `--device` says otherwise.
+the demo; it runs on the card unless `--device` says otherwise and writes
+the depth, coloured through magma_r, to ./thingy.png at the frame's size.
 """
 
 import glob
@@ -21,6 +22,8 @@ from .data.decode import read_rgb, write_png
 from .data.transforms import normalize_image
 from .models import UnetAdaptiveBins
 from .ops.resize import resize_bilinear_align_corners
+from .utils.colormaps import imshow_rgba
+from .utils.misc import colorize
 
 
 class InferenceHelper:
@@ -70,7 +73,6 @@ class InferenceHelper:
         img = np.asarray(pil_image, dtype=np.float32) / 255.0
         centers, pred = self.predict(normalize_image(img)[None])
         if visualized:
-            from .utils.misc import colorize
             return centers, pred, colorize(pred[0, ..., 0], vmin=None, vmax=None, cmap="magma")
         return centers, pred
 
@@ -102,12 +104,9 @@ def main(argv):
     helper = InferenceHelper(dataset="nyu", checkpoint_path=args.checkpoint, device=device)
     _, pred = helper.predict_pil(img)
     print(f"took :{time() - start}s on {device}")
-
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    plt.imshow(pred.squeeze(), cmap="magma_r")
-    plt.savefig("./thingy.png")
+    # the depth through magma_r over its own range, as imshow colours it,
+    # at the frame's size
+    write_png("./thingy.png", imshow_rgba(pred.squeeze(), cmap="magma_r")[..., :3])
 
 
 if __name__ == "__main__":

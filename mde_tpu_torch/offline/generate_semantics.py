@@ -24,6 +24,7 @@ import torch
 
 from ..data.decode import read_rgb
 from .hrnet import HRNetV2C1, hrnet_multiscale_inference, load_hrnet_c1
+from .semseg_zoo import SegmentationModel
 from .layers import seeded, to_compute_dtype
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -53,7 +54,7 @@ def device_of(name: str) -> torch.device:
     return device
 
 
-def build_model(args, device) -> HRNetV2C1:
+def build_model(args, device) -> SegmentationModel:
     if args.random_init is not None:
         model = to_compute_dtype(seeded(HRNetV2C1, args.random_init), COMPUTE_DTYPE)
     else:
@@ -61,7 +62,7 @@ def build_model(args, device) -> HRNetV2C1:
     return model.to(device).eval()
 
 
-def segment(model: HRNetV2C1, img_hwc01: np.ndarray) -> np.ndarray:
+def segment(model: SegmentationModel, img_hwc01: np.ndarray) -> np.ndarray:
     """One frame's (H, W) class map: the multiscale protocol on `model`."""
     device = next(model.parameters()).device
 

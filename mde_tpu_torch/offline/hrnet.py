@@ -6,7 +6,9 @@ mit_semseg/models/hrnet.py and models.py `C1`): `encoder` holds the keys of
 `encoder_epoch_30.pth` and `decoder` those of `decoder_epoch_30.pth`
 (`cbr.0`, `cbr.1`, `conv_last`), so a published pair loads with
 `load_hrnet_c1` and no conversion; they are the names
-`mde_tpu/offline/hrnet_convert.py:45-148` reads.
+`mde_tpu/offline/hrnet_convert.py:45-148` reads. The model itself is the
+zoo's (`semseg_zoo.SegmentationModel("hrnetv2", "c1")`), which also takes
+this module's residual blocks and C1 for its ResNets.
 
 Casts follow the JAX module: BatchNorm in float32, cast back to the compute
 dtype; the logits go to float32 (a float64 model's stay float64) before
@@ -26,8 +28,7 @@ import torch.nn.functional as F
 
 from ..data.transforms import normalize_image, resize_bilinear_pil
 from ..ops.resize import resize_bilinear_half_pixel
-from .layers import (BatchNorm2d, at_least_f32, compute_dtype, load_checked,
-                     to_compute_dtype)
+from .layers import BatchNorm2d
 
 _STAGE_CFG = {
     # stage: (num_modules, branch_channels, blocks_per_branch)
@@ -47,16 +48,21 @@ def _conv_bn(cin, cout, stride=1, relu=True):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, inplanes, planes, stride=1, has_downsample=False):
+    """1x1, 3x3 (stride, dilation, groups) and 1x1 convs to planes x
+    expansion, BN after each, and a 1x1 + BN downsample where the shape
+    changes (CSAIL resnet.py's Bottleneck; resnext.py's GroupBottleneck with
+    groups 32 and expansion 2)."""
+
+    def __init__(self, inplanes, planes, stride=1, has_downsample=False, dilation=1, groups=1,
+                 expansion=4):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv3x3(planes, planes, stride)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, dilation, dilation, groups, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = BatchNorm2d(planes * 4)
-        self.downsample = (nn.Sequential(nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
-                                         BatchNorm2d(planes * 4)) if has_downsample else None)
+        self.conv3 = nn.Conv2d(planes, planes * expansion, 1, bias=False)
+        self.bn3 = BatchNorm2d(planes * expansion)
+        self.downsample = _downsample(inplanes, planes * expansion, stride, has_downsample)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -67,16 +73,28 @@ class Bottleneck(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, planes):
+    """Two 3x3 convs (the first with the stride; both dilated), BN after
+    each, and the downsample where the shape changes (CSAIL resnet.py)."""
+
+    def __init__(self, inplanes, planes, stride=1, has_downsample=False, dilation=1):
         super().__init__()
-        self.conv1 = _conv3x3(planes, planes)
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, dilation, dilation, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv3x3(planes, planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, dilation, dilation, bias=False)
         self.bn2 = BatchNorm2d(planes)
+        self.downsample = _downsample(inplanes, planes, stride, has_downsample)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(y)) + x)
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(self.bn2(self.conv2(y)) + residual)
+
+
+def _downsample(inplanes, outplanes, stride, has_downsample):
+    if not has_downsample:
+        return None
+    return nn.Sequential(nn.Conv2d(inplanes, outplanes, 1, stride, bias=False),
+                         BatchNorm2d(outplanes))
 
 
 class ExchangeUnit(nn.Module):
@@ -87,7 +105,7 @@ class ExchangeUnit(nn.Module):
         super().__init__()
         n = len(channels)
         self.branches = nn.ModuleList(
-            nn.Sequential(*[BasicBlock(c) for _ in range(num_blocks)]) for c in channels)
+            nn.Sequential(*[BasicBlock(c, c) for _ in range(num_blocks)]) for c in channels)
         fuse = []
         for i in range(n):
             row = []
@@ -121,6 +139,8 @@ class ExchangeUnit(nn.Module):
 class HRNetV2Trunk(nn.Module):
     """The encoder: 4 parallel resolutions (48/96/192/384 channels), output
     the 720-channel concat at 1/4 of the input."""
+
+    channels = (720,)
 
     def __init__(self):
         super().__init__()
@@ -158,48 +178,33 @@ class HRNetV2Trunk(nn.Module):
 
 
 class C1(nn.Module):
-    """CSAIL's C1 decoder: 3x3 conv 720 -> 180 + BN + ReLU, 1x1 -> classes."""
+    """CSAIL's C1 decoder on the last feature map: 3x3 conv fc_dim -> fc_dim / 4
+    + BN + ReLU, 1x1 -> classes."""
 
     def __init__(self, num_classes=150, fc_dim=720):
         super().__init__()
         self.cbr = _conv_bn(fc_dim, fc_dim // 4)
         self.conv_last = nn.Conv2d(fc_dim // 4, num_classes, 1)
 
-    def forward(self, feats):
-        return self.conv_last(self.cbr(feats))
+    def forward(self, conv_out):
+        return self.conv_last(self.cbr(conv_out[-1]))
 
 
-class HRNetV2C1(nn.Module):
-    """Trunk + C1. Returns float32 softmax scores at `seg_size`, or float32
-    log-softmax at 1/4 of the input without it (CSAIL models.py:363-385);
-    float64 for a float64 model."""
-
-    def __init__(self, num_classes=150, fc_dim=720):
-        super().__init__()
-        self.encoder = HRNetV2Trunk()
-        self.decoder = C1(num_classes, fc_dim)
-
-    @property
-    def dtype(self):
-        return compute_dtype(self.decoder.conv_last)
-
-    def forward(self, x, seg_size=None):
-        y = at_least_f32(self.decoder(self.encoder(x.to(self.dtype))))
-        if seg_size is not None:
-            return torch.softmax(resize_bilinear_half_pixel(y, seg_size), dim=1)
-        return torch.log_softmax(y, dim=1)
+def HRNetV2C1(num_classes=150):
+    """HRNetV2-W48 + C1, `semseg_zoo.SegmentationModel("hrnetv2", "c1")`:
+    float32 softmax scores at `seg_size`, or float32 log-softmax at 1/4 of
+    the input without it (CSAIL models.py:363-385); float64 for a float64
+    model."""
+    from .semseg_zoo import SegmentationModel  # the zoo builds on this module
+    return SegmentationModel("hrnetv2", "c1", num_classes)
 
 
-def load_hrnet_c1(encoder_path: str, decoder_path: str, dtype=torch.float32) -> HRNetV2C1:
+def load_hrnet_c1(encoder_path: str, decoder_path: str, dtype=torch.float32):
     """A CSAIL encoder/decoder pair (`encoder_epoch_30.pth`,
     `decoder_epoch_30.pth`: plain state_dicts) into HRNetV2C1 on the CPU, in
     eval mode; a missing or unexpected key raises, named."""
-    with torch.device("meta"):  # no initialisation: every tensor comes from the files
-        model = HRNetV2C1()
-    for part, path in ((model.encoder, encoder_path), (model.decoder, decoder_path)):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        load_checked(part, sd, path)
-    return to_compute_dtype(model, dtype).eval()
+    from .semseg_zoo import load_segmentation_model
+    return load_segmentation_model("hrnetv2", "c1", encoder_path, decoder_path, dtype=dtype)
 
 
 # --------------------------------------------------------------- inference

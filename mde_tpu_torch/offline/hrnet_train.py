@@ -1,4 +1,5 @@
-"""Semantic-segmentation training for HRNetV2-W48 + C1, the port of
+"""Semantic-segmentation training for the zoo's models (HRNetV2-W48 + C1
+and the others of `semseg_zoo.py`), the port of
 `mde_tpu/offline/hrnet_train.py` (:1-79): the capability of the reference's
 semantic-segmentation-pytorch/train.py:93-140 (per-pixel NLL with an ignore
 label, SGD with poly learning-rate decay).
@@ -14,7 +15,7 @@ the poly schedule; update k runs at the schedule's step k, as optax's count.
 import numpy as np
 import torch
 
-from .hrnet import HRNetV2C1
+from .semseg_zoo import SegmentationModel
 
 
 def poly_lr_schedule(base_lr: float, max_iters: int, power: float = 0.9):
@@ -56,10 +57,12 @@ def build_semseg_optimizer(model: torch.nn.Module, base_lr: float = 0.02,
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: sched(k) / base_lr)
 
 
-def make_semseg_train_step(model: HRNetV2C1, optimizer, scheduler):
-    """step(images (N, 3, H, W) float32, labels (N, H/4, W/4) int, -1
-    ignored) -> {"loss", "acc"} as 0-dim device tensors: one forward in
-    training mode (log-softmax at 1/4 of the input), the loss, the backward,
+def make_semseg_train_step(model: SegmentationModel, optimizer, scheduler):
+    """step(images (N, 3, H, W) float32, labels (N, h, w) int at the model's
+    output resolution, -1 ignored) -> {"loss", "acc"} as 0-dim device
+    tensors, for any model of the zoo (HRNetV2-W48 + C1 among them), as the
+    JAX step takes any: one forward in training mode (log-softmax at the
+    model's resolution, 1/4 of the input for HRNet), the loss, the backward,
     an SGD update and the schedule's step. Reads nothing back to the host."""
 
     def step(images, labels):

@@ -31,9 +31,17 @@ global step; rank 0 names the run (its id and experiment directory go to
 every rank), writes the scalars and the checkpoints, and validates (eval
 mode has no collective, so its metrics are one process's).
 
-Not in this slice: the 500-step qualitative figures (`utils/graphs.py`), and
-`--steps_per_dispatch` / `--mesh_shape` (tensor parallelism), which parse and
-change nothing.
+Qualitative figures (`utils/graphs.py`, rank 0), at the JAX driver's cadence
+(:173-193): `Train/QualSamples` when `step % 500 == 0`, after that step's
+update, and `Test/QualSamples` at each validation, both from the batch just
+trained. The figure forward runs the unwrapped model on that batch's first
+two images, in eval mode under `torch.inference_mode` and the training's
+compute dtype, then puts it back in train mode: parameters, BN buffers, the
+optimizer and the dropout generator are left as they were. Each figure is a
+PNG in the experiment directory and a JSONL line (`SummaryLogger.add_figure`).
+
+Not in this slice: `--steps_per_dispatch` and `--mesh_shape` (tensor
+parallelism), which parse and change nothing.
 """
 
 import glob
@@ -53,10 +61,13 @@ from ..models import build_model
 from ..parallel import (broadcast_object, destroy_distributed, maybe_init_distributed,
                         shard_batch_size)
 from ..utils import SummaryLogger, setup_exp_dir
-from .loop import make_eval_step, make_train_step, validate
+from ..utils.graphs import GraphBuilderNYUD2, visualize_semantics
+from .loop import eval_forward, make_eval_step, make_train_step, validate
 from .state import create_train_state, wrap_ddp
 
 LOG_EVERY = 5  # reference train.py:432
+FIGURE_EVERY = 500  # reference train.py:437
+FIGURE_SAMPLES = 2  # rows of the figure grid (mde_tpu/train/driver.py:148)
 
 
 def make_run_id(args) -> str:
@@ -103,6 +114,43 @@ def apply_pretrained_backbone(model, args):
             loaded["conv_stem.weight"] = widened
     encoder.load_state_dict(loaded, strict=True)
     return model
+
+
+def make_figure_forward(args, sem_embedder=None, inst_embedder=None):
+    """forward(model, batch) -> the float32 prediction (n, 1, h, w) for the
+    first FIGURE_SAMPLES images of a device batch: `model` (the unwrapped
+    module, never the DDP wrapper: eval mode has no collective) in eval mode
+    under `torch.inference_mode` and the training's compute dtype, as the JAX
+    driver's `qual_forward` (:125-135); the model goes back to train mode."""
+    bf16 = args.compute_dtype == "bfloat16"
+
+    @torch.inference_mode()
+    def forward(model, batch):
+        part = {k: v[:FIGURE_SAMPLES] for k, v in batch.items() if k in ARRAY_KEYS}
+        try:
+            _, pred = eval_forward(model, part, bf16, sem_embedder, inst_embedder)
+        finally:
+            model.train()
+        return pred.float()
+
+    return forward
+
+
+def log_qual_figure(logger, graph_builder, tag, args, batch, pred, step):
+    """Build and write one qualitative grid (`mde_tpu/train/driver.py:339-355`):
+    RGB, GT and prediction, and the raw cue maps coloured when the run reads
+    them, from the batch's first FIGURE_SAMPLES images."""
+    def host(t):
+        return t[:FIGURE_SAMPLES].permute(0, 2, 3, 1).cpu().numpy()
+
+    cue_colors = [visualize_semantics(host(batch[key]))
+                  if flag is not None and key in batch else None
+                  for key, flag in (("semantics", args.use_semantics),
+                                    ("instance_labels", args.use_instance_segmentation))]
+    graph_builder.add_image(host(batch["image"]), host(batch["depth"]), host(pred),
+                            semantics=cue_colors[0], instance_labels=cue_colors[1])
+    logger.add_figure(tag, graph_builder.image(), step)
+    graph_builder.reset()
 
 
 def main_train(args, max_steps=None, interactive=True):
@@ -161,19 +209,29 @@ def _train(args, device, rank, world_size, max_steps, interactive):
 
     train_step = make_train_step(args, sem_embedder, inst_embedder)
     eval_step = make_eval_step(args, sem_embedder, inst_embedder)
+    figure_forward = make_figure_forward(args, sem_embedder, inst_embedder)
     experiment_name = args.name
     logger = SummaryLogger(exp_dir) if lead else None
+    graph_builder = GraphBuilderNYUD2(
+        num_samples=FIGURE_SAMPLES, semantics=args.use_semantics is not None,
+        instance_labels=args.use_instance_segmentation is not None)
     best_loss = np.inf
     step = state.step
 
-    def bookkeep(metrics, epoch):
-        """Logging, validation and checkpoints after one step (rank 0); True
-        when max_steps is reached."""
+    def figure(tag, batch):
+        pred = figure_forward(state.model, batch)
+        log_qual_figure(logger, graph_builder, tag, args, batch, pred, step)
+
+    def bookkeep(metrics, batch, epoch):
+        """Logging, figures, validation and checkpoints after one step (rank
+        0); True when max_steps is reached."""
         nonlocal step, best_loss
         if lead and step % LOG_EVERY == 0:
             logger.add_scalar("Train/Loss", metrics["loss"].item(), step)
             logger.add_scalar("Train/SILog", metrics["silog"].item(), step)
             logger.add_scalar("Train/ChamferLoss", metrics["chamfer"].item(), step)
+        if lead and step % FIGURE_EVERY == 0:
+            figure("Train/QualSamples", batch)
         step += 1
         if lead and (step % args.validate_every == 0 or (max_steps and step >= max_steps)):
             m, val_si = validate(args, eval_step, state.model,
@@ -182,6 +240,8 @@ def _train(args, device, rank, world_size, max_steps, interactive):
             logger.add_scalar("Test/SILog", val_si.get_value(), step)
             for k, v in m.items():
                 logger.add_scalar(f"Metrics/{k}", v, step)
+            # from the last train batch, as the JAX driver (:187-193)
+            figure("Test/QualSamples", batch)
             save_checkpoint(state, epoch, f"{experiment_name}_{run_id}_latest.pt", root=exp_dir)
             if m.get("abs_rel", np.inf) < best_loss:
                 save_checkpoint(state, epoch, f"{experiment_name}_{run_id}_best.pt",
@@ -197,7 +257,7 @@ def _train(args, device, rank, world_size, max_steps, interactive):
             for batch in DevicePrefetcher(train_loader, device):
                 state, metrics = train_step(state, {k: v for k, v in batch.items()
                                                     if k in ARRAY_KEYS})
-                if bookkeep(metrics, epoch):
+                if bookkeep(metrics, batch, epoch):
                     return state
     finally:
         if lead:

@@ -41,9 +41,11 @@ and the AdamW update with the scheduled lr and beta1.
   the ranks.
 
 The eval step runs on the device under `torch.inference_mode()`: the
-forward with no TTA, the float32 prediction resized (align corners) to the
-GT's size, per-image SILog, the clamp to the eval range with inf and NaN
-scrubbed, and the masked metrics per image. `validate` feeds it any iterable
+forward with no TTA, in the training's compute dtype (bf16 autocast at
+`--compute_dtype bfloat16`, as the JAX eval step runs its bf16 model), the
+float32 prediction resized (align corners) to the GT's size, per-image
+SILog, the clamp to the eval range with inf and NaN scrubbed, and the
+masked metrics per image. `validate` feeds it any iterable
 of batch dicts and averages per sample, as the reference does at batch 1.
 
 Not ported: `make_multi_step` and `--steps_per_dispatch` (a TPU dispatch
@@ -153,22 +155,35 @@ def clamp_prediction(pred, min_d: float, max_d: float):
     return torch.where(torch.isnan(pred), min_d, pred)
 
 
+def eval_forward(model, batch, bf16: bool, sem_embedder=None, inst_embedder=None):
+    """The model in eval mode on a batch on its device: the cues embedded,
+    then the forward, under bf16 autocast when `bf16` (the training's
+    compute dtype, as the JAX package builds its one model in it). Returns
+    the model's (bin_edges, pred)."""
+    model.eval()
+    cues = _embed_cues(batch, sem_embedder, inst_embedder)
+    image = batch["image"]
+    with torch.autocast(image.device.type, dtype=torch.bfloat16, enabled=bf16):
+        return model(image, *cues)
+
+
 def make_eval_step(args, sem_embedder=None, inst_embedder=None):
     """eval_step(model, batch, crop_mask) -> (silog (N,), metrics, pred): the
-    model in eval mode on a batch on its device, `crop_mask` (H, W) boolean
-    at the GT's size. `metrics` maps each of METRIC_NAMES to an (N,) tensor;
+    model in eval mode on a batch on its device, its forward in
+    `args.compute_dtype` (`eval_forward`), `crop_mask` (H, W) boolean at the
+    GT's size. `metrics` maps each of METRIC_NAMES to an (N,) tensor;
     `pred` is the float32 prediction at the model's resolution, clamped to
     the eval range with inf and NaN scrubbed (what `evaluate`'s save path
     resizes on the host), from the same forward."""
     min_d, max_d = float(args.min_depth_eval), float(args.max_depth_eval)
     min_depth = float(args.min_depth)
+    bf16 = getattr(args, "compute_dtype", "float32") == "bfloat16"
 
     @torch.inference_mode()
     def eval_step(model, batch, crop_mask):
-        model.eval()
-        cues = _embed_cues(batch, sem_embedder, inst_embedder)
-        _, raw = model(batch["image"], *cues)
+        _, raw = eval_forward(model, batch, bf16, sem_embedder, inst_embedder)
         # metric math stays float32 whatever the model computes in
+        # (mde_tpu/train/loop.py:181-183)
         depth = batch["depth"]
         pred = resize_bilinear_align_corners(raw.float(), depth.shape[-2:])
         # per-image SILog, so the host can drop invalid-depth samples alone

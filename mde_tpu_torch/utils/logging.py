@@ -4,12 +4,15 @@ exists.
 
 The reference logs scalars every 5 steps and figure grids every 500 via
 torch SummaryWriter (reference train.py:327, 432-452). Each JSONL line is
-{"t": wall time, "tag": ..., "value": ..., "step": ...}.
+{"t": wall time, "tag": ..., "value": ..., "step": ...}, or, for a figure,
+{"t", "tag", "figure": the PNG's path, "step"}.
 """
 
 import json
 import os
 import time
+
+from ..data.decode import write_png
 
 
 class SummaryLogger:
@@ -29,6 +32,17 @@ class SummaryLogger:
             {"t": time.time(), "tag": tag, "value": float(value), "step": int(step)}) + "\n")
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), step)
+
+    def add_figure(self, tag: str, image, step: int):
+        """An (H, W, 3) uint8 figure (`utils/graphs.py`) as
+        `{tag with / as _}_{step}.png` in the log directory, its JSONL line
+        {"t", "tag", "figure", "step"}, and the image on TensorBoard."""
+        path = os.path.join(self.log_dir, f"{tag.replace('/', '_')}_{step}.png")
+        write_png(path, image)
+        self._jsonl.write(json.dumps(
+            {"t": time.time(), "tag": tag, "figure": path, "step": int(step)}) + "\n")
+        if self._tb is not None:
+            self._tb.add_image(tag, image, step, dataformats="HWC")
 
     def close(self):
         self._jsonl.close()

@@ -7,6 +7,8 @@ import sys
 
 import numpy as np
 
+from .colormaps import apply_colormap
+
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
@@ -22,10 +24,9 @@ def count_parameters(model) -> int:
 
 
 def colorize(value_hw, vmin=10, vmax=1000, cmap="magma_r", invalid_value=-1):
-    """Depth map (H, W) -> uint8 RGB via a matplotlib colormap
+    """Depth map (H, W) -> uint8 RGB through a colormap of `utils/colormaps.py`
+    (magma, inferno or their `_r` maps), as matplotlib colours it
     (reference utils.py:92-112)."""
-    import matplotlib
-
     value = np.asarray(value_hw)
     invalid_mask = value == invalid_value
 
@@ -35,8 +36,7 @@ def colorize(value_hw, vmin=10, vmax=1000, cmap="magma_r", invalid_value=-1):
         value = (value - vmin) / (vmax - vmin)
     else:
         value = value * 0.0
-    cmapper = matplotlib.colormaps[cmap]
-    value = cmapper(value, bytes=True)
+    value = apply_colormap(cmap, value)
     value[invalid_mask] = 255
     return value[:, :, :3]
 

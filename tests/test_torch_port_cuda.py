@@ -617,8 +617,11 @@ def test_prefetcher_batches_equal_the_loaders(cuda, tmp_path):
 def test_driver_launches_the_kernels(cuda, tmp_path):
     """main_train on files, bf16, batch 2 of 320x416, 2 steps and one
     validation of 2 frames: 1/2/1 bf16 head forward / backward and chamfer
-    launches a step, one float32 head forward an eval frame; a resume takes
-    the last step of the epoch from update 2."""
+    launches a step, one bf16 head forward an eval frame (validation runs
+    in the training's compute dtype) and one a figure (Train/QualSamples at
+    step 0, Test/QualSamples at each validation), no float32 one; a resume
+    takes the last step of the epoch from update 2, validates and draws its
+    figure."""
     from mde_tpu_torch.config import TrainArgParser, parse_cli
     from mde_tpu_torch.train import main_train
     root = _nyu_tree(tmp_path, 6, 2, eval_hw=(320, 416))
@@ -632,7 +635,8 @@ def test_driver_launches_the_kernels(cuda, tmp_path):
     state = main_train(args, max_steps=2, interactive=False)
     torch.cuda.synchronize()
     assert state.step == 2
-    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 2, 4, 2)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 2 + 2 + 2, 4, 2)
+    assert len(list((root / "runs" / args.name).glob("*_QualSamples_*.png"))) == 2
 
     before = counts()
     args = parse_cli(TrainArgParser(), _train_argv(root, "--validate_every", "3",
@@ -641,7 +645,7 @@ def test_driver_launches_the_kernels(cuda, tmp_path):
     state = main_train(args, interactive=False)
     torch.cuda.synchronize()
     assert state.step == 3
-    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 1, 2, 1)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 1 + 2 + 1, 2, 1)
 
 
 @pytest.mark.cuda
@@ -863,3 +867,23 @@ def test_hrnet_train_step_equals_the_cpu(cuda):
     for n, want in b_cpu.items():
         err = (b_gpu[n] - want).abs().max() / want.abs().max().clamp(min=1e-30)
         assert err <= 1e-4, (n, float(err))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_encoder,arch_decoder", [
+    ("resnet18dilated", "c1_deepsup"), ("resnet50dilated", "ppm_deepsup"),
+    ("mobilenetv2dilated", "c1_deepsup"), ("resnext101", "upernet")])
+def test_semseg_zoo_forward_equals_the_cpu(cuda, arch_encoder, arch_decoder):
+    """A zoo model at its published widths, 150 classes, seeded weights,
+    float32 (TF32 off), batch 1 of 128x160: the log-probabilities on the
+    card within 1e-4 of the largest CPU value (seeded logits reach the
+    thousands, so a near-tie's softmax is no measure of the error)."""
+    from mde_tpu_torch.offline.layers import seeded
+    from mde_tpu_torch.offline.semseg_zoo import SegmentationModel
+    model = seeded(lambda: SegmentationModel(arch_encoder, arch_decoder), 0)
+    x = torch.randn((1, 3, 128, 160), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -9,9 +9,10 @@ epoch), one eval frame, `--device cpu`.
 
 * In process: `main_train(max_steps=2)` takes 2 steps, validates at step 2
   and writes latest and best. The JSONL holds the tags and steps that
-  mde_tpu/train/driver.py:164-215 writes at that cadence (the figures
-  aside, which this slice leaves out): `Epoch`, `Train/*` every 5 steps,
-  `Test/SILog` and `Metrics/*` at every validation. TensorBoard is hidden
+  mde_tpu/train/driver.py:164-215 writes at that cadence: `Epoch`,
+  `Train/*` every 5 steps, `Train/QualSamples` every 500, `Test/SILog`,
+  `Metrics/*` and `Test/QualSamples` at every validation; each figure line
+  names its PNG, which decodes at the size of its panels. TensorBoard is hidden
   from this run (the JSONL is what is read; importing TensorFlow would cost
   more than the run).
 * The CLI in a subprocess resumes from that latest checkpoint into a fresh
@@ -92,16 +93,19 @@ def _checkpoints(exp_dir, kind):
 
 
 def jax_cadence(first_step, max_steps, steps_per_epoch, validate_every):
-    """(tag, step) of every scalar mde_tpu/train/driver.py writes from
-    `first_step` to `max_steps` (its epoch loop :214-239 and `bookkeep`
-    :164-212), figures aside."""
+    """(tag, step) of every scalar and figure mde_tpu/train/driver.py writes
+    from `first_step` to `max_steps` (its epoch loop :214-239 and `bookkeep`
+    :164-212)."""
     out, step = [("Epoch", first_step)], first_step
     while True:
         if step % 5 == 0:
             out += [("Train/Loss", step), ("Train/SILog", step), ("Train/ChamferLoss", step)]
+        if step % 500 == 0:
+            out.append(("Train/QualSamples", step))
         step += 1
         if step % validate_every == 0 or step >= max_steps:
-            out += [("Test/SILog", step)] + [(f"Metrics/{k}", step) for k in METRIC_NAMES]
+            out += ([("Test/SILog", step)] + [(f"Metrics/{k}", step) for k in METRIC_NAMES]
+                    + [("Test/QualSamples", step)])
         if step >= max_steps:
             return out
         if step % steps_per_epoch == 0:
@@ -121,13 +125,73 @@ def first_run(tree, tmp_path_factory):
     return args, state
 
 
+def _check_figures(events, exp_dir, crop_hw=HW):
+    """Each figure line names `{tag with / as _}_{step}.png` in the
+    experiment directory: one row of RGB, GT and prediction (batch 1 of the
+    2-row grid) in cells of the crop's size with 8-pixel gutters, the
+    prediction at the model's half resolution on white."""
+    from mde_tpu_torch.data import read_png
+    figures = [e for e in events if "figure" in e]
+    assert figures
+    for e in figures:
+        assert e["figure"] == os.path.join(exp_dir, f"{e['tag'].replace('/', '_')}_{e['step']}.png")
+        png = read_png(e["figure"])
+        h, w = crop_hw
+        assert png.shape == (2 * h + 8, 3 * w + 16, 3) and png.dtype == np.uint8
+        pred = png[:h, 2 * (w + 8):]
+        assert (pred[h // 2:] == 255).all() and (pred[:, w // 2:] == 255).all()
+        assert (png[h:] == 255).all()  # the second row: no second sample
+
+
 def test_main_train_writes_the_jax_cadence(first_run):
     args, state = first_run
     assert state.step == 2
     events = _events(args.exp_dir)
     assert [(e["tag"], e["step"]) for e in events] == jax_cadence(0, 2, 3, 2)
-    assert all(np.isfinite(e["value"]) for e in events)
+    assert all(np.isfinite(e["value"]) for e in events if "value" in e)
     assert [e["value"] for e in events if e["tag"] == "Epoch"] == [0]
+    _check_figures(events, args.exp_dir)
+
+
+def test_figure_forward_changes_nothing_of_training(first_run):
+    """The driver's figure forward on a trained state: eval mode and the
+    training's compute dtype (bf16 convolutions at bfloat16), the model back
+    in train mode after it; parameters, BN buffers, the AdamW state and
+    torch's generator (from which nothing may be drawn) bit-equal."""
+    from copy import deepcopy
+
+    from mde_tpu_torch.data import DevicePrefetcher
+    from mde_tpu_torch.train.driver import make_figure_forward
+
+    args, state = first_run
+    loader = DepthDataLoader(args, "train")
+    loader.set_epoch(0)
+    batch = next(iter(DevicePrefetcher(loader, "cpu")))
+    model = state.model.train()
+    before = (deepcopy(model.state_dict()), deepcopy(state.optimizer.optimizer.state_dict()),
+              torch.get_rng_state())
+    modes, dtypes = [], []
+    hooks = [model.register_forward_hook(lambda m, i, out: modes.append(m.training)),
+             model.encoder.original_model.conv_stem.register_forward_hook(
+                 lambda m, i, out: dtypes.append(out.dtype))]
+    try:
+        for dtype in ("float32", "bfloat16"):
+            fig_args = types.SimpleNamespace(**{**vars(args), "compute_dtype": dtype})
+            pred = make_figure_forward(fig_args)(model, batch)
+            assert pred.shape == (1, 1, HW[0] // 2, HW[1] // 2) and pred.dtype == torch.float32
+    finally:
+        for h in hooks:
+            h.remove()
+    assert modes == [False, False] and model.training
+    assert dtypes == [torch.float32, torch.bfloat16]
+    for k, v in before[0].items():
+        assert torch.equal(model.state_dict()[k], v), k
+    after = state.optimizer.optimizer.state_dict()
+    assert after["param_groups"] == before[1]["param_groups"]
+    for i, slots in before[1]["state"].items():
+        for k, v in slots.items():
+            assert torch.equal(after["state"][i][k], v), (i, k)
+    assert torch.equal(torch.get_rng_state(), before[2])
 
 
 def test_main_train_writes_latest_and_best(first_run):
@@ -163,6 +227,7 @@ def test_cli_resumes_validates_and_writes_checkpoints(first_run, tree, tmp_path)
     events = _events(exp_dir)
     assert [(e["tag"], e["step"]) for e in events] == jax_cadence(2, 3, 3, 3)
     assert events[0]["value"] == 0  # the saved epoch, continued
+    _check_figures(events, str(exp_dir))
     assert any(f.startswith("events.out.tfevents") for f in os.listdir(exp_dir))
     (new_latest,), (best,) = _checkpoints(exp_dir, "latest"), _checkpoints(exp_dir, "best")
     ckpt = torch.load(new_latest, weights_only=True)
@@ -259,6 +324,7 @@ def test_torchrun_trains_on_two_gloo_ranks(tree, tmp_path):
     assert (ckpt["epoch"], ckpt["step"]) == (0, 1)
     events = _events(exp_dir)
     assert [(e["tag"], e["step"]) for e in events] == jax_cadence(0, 1, 1, 1)
+    _check_figures(events, exp_dir, (64, 96))
 
     model = build_model(args)
     model.load_state_dict(ckpt["model"], strict=True)
@@ -266,7 +332,7 @@ def test_torchrun_trains_on_two_gloo_ranks(tree, tmp_path):
                                DevicePrefetcher(DepthDataLoader(args, "online_eval"), "cpu"))
     # rtol 1e-4: the rank summed its convolutions on one thread, this
     # process on two (the reading is ~1e-5)
-    logged = {e["tag"]: e["value"] for e in events}
+    logged = {e["tag"]: e["value"] for e in events if "value" in e}
     np.testing.assert_allclose(logged["Test/SILog"], val_si.get_value(), rtol=1e-4)
     for k, v in metrics.items():
         np.testing.assert_allclose(logged[f"Metrics/{k}"], v, rtol=1e-4, err_msg=k)

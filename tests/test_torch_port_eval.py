@@ -10,7 +10,9 @@
   and metrics rtol 1e-4, a1-a3 atol 1e-3 (a pixel at a ratio threshold may
   flip with the depth's last digits, and one pixel of the eigen crop is
   4.2e-6 of it; the depth itself agrees to rtol 1e-4, atol 2e-3 m, as in the
-  forward tests).
+  forward tests). The eval step computes in `--compute_dtype`: at bfloat16
+  its convolutions run in bf16 and its metrics agree with JAX's bf16 eval
+  step within BF16_METRIC_RTOL (5e-3), set from JAX's own bf16 error.
 * One training step, configuration B (cues before the mViT) at 320x416,
   batch 2, as tests/test_torch_port_train.py holds the no-cue step: dropout
   off on both sides, JAX's gradients kept by an optax transformation that
@@ -44,6 +46,7 @@ from mde_tpu_torch.kernels import bins_head
 from mde_tpu_torch.ops import metrics
 from mde_tpu_torch.train import create_train_state, make_eval_step, make_loss_fn
 from mde_tpu_torch.train import make_train_step, validate
+from float64_convs import depthwise_as_taps
 from test_torch_port_cues import CPU, config_args, jax_config, port_model, raw_cues
 from test_torch_port_models import nchw
 from test_torch_port_train import (GROUPS, ROUNDING_FLOOR, ROUNDING_RATIO, _grad_keeper,
@@ -52,6 +55,11 @@ from test_torch_port_train import (GROUPS, ROUNDING_FLOOR, ROUNDING_RATIO, _grad
 torch.set_num_threads(2)
 
 HW, GT_HW = (320, 416), (480, 640)
+# bf16 validation metrics, relative: JAX's own bf16 metrics lie 8.3e-7 (silog)
+# to 7.2e-4 (sq_rel) from its float32 step, whose rounding is orders below
+# bf16's; the port's bf16 step (autocast: bf16 BatchNorms, where flax's
+# compute in float32) lies 1.6e-6 to 2.2e-3 from JAX's (measured, config A)
+BF16_METRIC_RTOL = 5e-3
 
 
 # --- metrics ---------------------------------------------------------------
@@ -111,8 +119,10 @@ def _depth(rng, n):
 @pytest.fixture(scope="module")
 def eval_config():
     """Configuration A: the JAX eval step, jitted once for batches of 2, and
-    the port's, on the same weights; three batches of raw maps."""
-    args, model, params, stats, _ = jax_config("A", HW, 20, n=2)
+    the port's, on the same weights; three batches of raw maps. float32 on
+    both sides: the port's eval step computes in `--compute_dtype`, whose
+    parser default is bfloat16, and the JAX model is built in float32."""
+    args, model, params, stats, _ = jax_config("A", HW, 20, "--compute_dtype", "float32", n=2)
     rng = np.random.default_rng(21)
     batches = []
     for valid in ([True, True], [True, False], [True, True]):
@@ -203,6 +213,46 @@ def test_validate_skips_batches_without_valid_depth(eval_config):
     assert sorted(got) == sorted(metrics.METRIC_NAMES)
 
 
+def test_eval_step_runs_in_the_compute_dtype(eval_config):
+    """The eval step of `make_eval_step(args, ...)`, as main_train builds it:
+    at --compute_dtype bfloat16 every convolution of the model computes in
+    bf16 (a forward hook sees bf16 outputs; autocast casts the inputs inside
+    the call; the JAX driver's one model computes in bf16), at float32 in
+    float32. The bf16 metrics of the first batch agree with JAX's bf16
+    eval step on the same weights and frames within BF16_METRIC_RTOL, set
+    from JAX's own bf16 error: its distance from its float32 step, whose
+    rounding is orders below bf16's. A float32 eval step at bfloat16 fails
+    the dtype check."""
+    c = eval_config
+    model, batch = c["port"], [_port_batch(c["batches"][0])]
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, out: seen.append(out.dtype))
+             for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    got = {}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            args = types.SimpleNamespace(**{**vars(c["args"]), "compute_dtype": dtype})
+            seen.clear()
+            got[dtype], _ = validate(args, make_eval_step(args, *_embedders(args)), model, batch)
+            assert set(seen) == {getattr(torch, dtype)}, (dtype, set(seen))
+    finally:
+        for h in hooks:
+            h.remove()
+    args = types.SimpleNamespace(**{**vars(c["args"]), "compute_dtype": "bfloat16"})
+    jax_step = jax_make_eval_step(jax_build_model(args, dtype=jnp.bfloat16), args,
+                                  JaxSemanticsEmbedder(args), JaxInstanceEmbedder(args))
+    state = types.SimpleNamespace(params=c["params"], batch_stats=c["stats"])
+    want, _ = jax_validate(args, jax_step, state, c["batches"][:1])
+    want32, _ = jax_validate(c["args"], c["jax_step"], state, c["batches"][:1])
+    for name in metrics.METRIC_NAMES:
+        jax_err = abs(want[name] - want32[name]) / abs(want32[name])
+        err = abs(got["bfloat16"][name] - want[name]) / abs(want[name])
+        print(f"{name}: port bf16 against JAX bf16 {err:.2e}, JAX bf16 against float32 "
+              f"{jax_err:.2e}")
+        assert jax_err <= BF16_METRIC_RTOL and err <= BF16_METRIC_RTOL, name
+    _assert_metrics_close(got["float32"], want32)
+
+
 # --- one training step with cues (configuration B) --------------------------
 
 def _train_args(**kw):
@@ -248,10 +298,11 @@ def f64_cue_grads(step_inputs):
         batch = {k: nchw(v) for k, v in raw.items()}
         batch["image"], batch["depth"] = batch["image"].double(), batch["depth"].double()
         sem, inst = _embedders(args)
-        loss, _, _ = make_loss_fn(  # float64 cues, as the model is
-            args, lambda *a: [t.double() for t in sem(*a)],
-            lambda *a: [t.double() for t in inst(*a)])(model, batch)
-        loss.backward()
+        with depthwise_as_taps():  # float64_convs.py: the same function, faster
+            loss, _, _ = make_loss_fn(  # float64 cues, as the model is
+                args, lambda *a: [t.double() for t in sem(*a)],
+                lambda *a: [t.double() for t in inst(*a)])(model, batch)
+            loss.backward()
     finally:
         mp.undo()
     return {k: torch.zeros_like(p) if p.grad is None else p.grad

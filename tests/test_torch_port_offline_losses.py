@@ -143,11 +143,19 @@ def _uniform(draws):
     return uniform
 
 
-def test_losses_and_bn_stats_match_jax(setup):
-    model, _, want, want_stats, draws, inputs = setup
+@pytest.fixture(scope="module")
+def port_losses(setup):
+    """The port's compute_losses in training mode on JAX's draws, its graph
+    kept (the AdamW test takes its backward), and the state_dict before it."""
+    model, _, _, _, draws, inputs = setup
+    before = {k: v.clone() for k, v in model.state_dict().items()}
     model.train()
-    got = model.compute_losses(*inputs, _uniform(draws), HW, NUM_SAMPLES)
-    got = {k: float(v.detach()) for k, v in got.items()}
+    return model.compute_losses(*inputs, _uniform(draws), HW, NUM_SAMPLES), before
+
+
+def test_losses_and_bn_stats_match_jax(setup, port_losses):
+    model, _, want, want_stats, draws, inputs = setup
+    got = {k: float(v.detach()) for k, v in port_losses[0].items()}
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
@@ -162,13 +170,15 @@ def test_losses_and_bn_stats_match_jax(setup):
                 assert err <= 1e-5, (i, j, err)
 
 
-def test_one_optimizer_step_lowers_the_total(setup):
+def test_one_optimizer_step_lowers_the_total(setup, port_losses):
+    """AdamW on the gradients of port_losses' total (the test above reads
+    the same forward), then the total again on the same draws."""
     model, _, _, _, draws, inputs = setup
+    losses, before = port_losses
     model.train()
-    before = {k: v.clone() for k, v in model.state_dict().items()}
     opt, sched = detection_data.detector_optimizer(model, base_lr=1e-5, warmup_ratio=1.0)
     try:
-        total = model.compute_losses(*inputs, _uniform(draws), HW, NUM_SAMPLES)["total"]
+        total = losses["total"]
         opt.zero_grad()
         total.backward()
         opt.step()

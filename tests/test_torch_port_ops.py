@@ -1,6 +1,7 @@
 """Port parity, ops: mde_tpu_torch.ops against mde_tpu.ops (CPU, float32),
-and the port's import boundary (no jax, no flax, no mde_tpu, no PIL: the
-card's machine has no Pillow, so the port decodes images itself).
+and the port's import boundary (no jax, no flax, no mde_tpu, no PIL, no
+matplotlib: the card's machine has neither Pillow nor matplotlib, so the
+port decodes images and colours its pictures itself).
 
 Tolerance rtol 1e-6, with atol 1e-6 for values near zero: the JAX resize is
 two f32 matmuls over taps computed in f64, torch's interpolates with taps
@@ -37,14 +38,16 @@ SLICE_MODULES = ["mde_tpu_torch", "mde_tpu_torch.ops", "mde_tpu_torch.ops.losses
                  "mde_tpu_torch.offline.generate_instances",
                  "mde_tpu_torch.offline.train_detector", "mde_tpu_torch.offline.eval_detector",
                  "mde_tpu_torch.offline.eval_semseg", "mde_tpu_torch.offline.hrnet_train",
-                 "mde_tpu_torch.utils.graphs"]
-FORBIDDEN = ("jax", "flax", "orbax", "mde_tpu", "PIL")
+                 "mde_tpu_torch.utils.graphs", "mde_tpu_torch.utils.pointcloud",
+                 "mde_tpu_torch.offline.semseg_zoo"]
+FORBIDDEN = ("jax", "flax", "orbax", "mde_tpu", "PIL", "matplotlib")
 
 
 def test_port_imports_no_jax_flax_or_pil():
     code = ("import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-            "bad = [m for m in ('jax', 'flax', 'orbax', 'PIL') if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'flax', 'orbax', 'PIL', 'matplotlib') "
+            "if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
 

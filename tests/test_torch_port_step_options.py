@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from float64_convs import depthwise_as_taps
 from mde_tpu_torch.checkpoint import state_dict_from_flax
 from mde_tpu_torch.models import build_model
 from mde_tpu_torch.train import create_train_state, make_loss_fn, make_train_step
@@ -262,9 +263,10 @@ def f64_grads(inputs):
     mp.setattr(torch.Tensor, "float",
                lambda self, *a, **k: self if self.dtype == torch.float64 else to_float(self, *a, **k))
     try:
-        loss, _, _ = make_loss_fn(args)(model, {"image": _nchw(image).double(),
-                                                "depth": _nchw(depth).double()})
-        loss.backward()
+        with depthwise_as_taps():  # float64_convs.py: the same function, faster
+            loss, _, _ = make_loss_fn(args)(model, {"image": _nchw(image).double(),
+                                                    "depth": _nchw(depth).double()})
+            loss.backward()
     finally:
         mp.undo()
     return {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in model.named_parameters()}

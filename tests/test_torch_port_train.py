@@ -88,6 +88,7 @@ from mde_tpu_torch.models.norm import BatchNorm2d
 from mde_tpu_torch.train import (OneCycleAdamW, create_train_state, make_loss_fn,
                                  make_train_step, onecycle_lr_schedule,
                                  onecycle_momentum_schedule)
+from float64_convs import depthwise_as_taps
 from test_torch_port_models import flax_variables
 
 torch.set_num_threads(2)
@@ -273,16 +274,19 @@ def _f64_step(params, stats, image, depth):
     """The port's loss and gradients of the step on these weights and batch,
     in float64: the plain head and the chunked chamfer, with the `.float()`
     casts of the model and the losses (there to lift bf16 under autocast)
-    leaving float64 tensors as they are."""
+    leaving float64 tensors as they are, and the depthwise convolutions as
+    tap sums (`float64_convs.py`: the same float64 function, ~10 % less
+    time)."""
     model = _port_model(params, stats, fused_head=False).double().train()
     to_float = torch.Tensor.float
     mp = pytest.MonkeyPatch()
     mp.setattr(torch.Tensor, "float",
                lambda self, *a, **k: self if self.dtype == torch.float64 else to_float(self, *a, **k))
     try:
-        loss, _, _ = make_loss_fn(_args(use_pallas_chamfer=False))(
-            model, {"image": _nchw(image).double(), "depth": _nchw(depth).double()})
-        loss.backward()
+        with depthwise_as_taps():
+            loss, _, _ = make_loss_fn(_args(use_pallas_chamfer=False))(
+                model, {"image": _nchw(image).double(), "depth": _nchw(depth).double()})
+            loss.backward()
     finally:
         mp.undo()
     return loss.item(), {k: torch.zeros_like(p) if p.grad is None else p.grad
