@@ -4,6 +4,11 @@
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile DIR   # also write profiler tables to DIR,
                                           # and the cue ops' share of the A step
+    python3 chip_smoke.py --only tp       # phases 1-2, 5 and 9e alone (a quick
+                                          # check of tensor parallelism; no
+                                          # result line)
+    python3 chip_smoke.py --only tp-nccl  # phase 9e's NCCL ranks alone, on a
+                                          # machine with two cards or more
 
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. toolchain: torch, CUDA, nvcc, device capability, triton, card and power,
@@ -111,6 +116,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      (d) --pretrained_backbone: a seeded B1 .npz into configuration A's
          73-channel stem: the RGB slice the file's, the cue slice untouched,
          every other weight and BN stat the file's
+     (e) tensor parallelism (--mesh_shape): two gloo ranks spawned on the one
+         card at 1,2, the flagship (B1, 256 bins, 416x544, all 16 images on
+         each rank, bf16, AdamW + OneCycle + clip 0.1, the fused head and
+         chamfer kernels): 2 warm-up and 6 timed steps, 1/2/1 launches a
+         rank a step, equal losses, the replicated parameters' SHA-256
+         equal on the ranks after the steps; with --profile the model-group
+         collectives' share of one step's device and host time on rank 0;
+         one float32 step, dropout on, against one process's (loss rtol
+         2e-4, the gradients the update applied within 2e-2 of the largest
+         value); main_train --distributed --mesh_shape 1,2 on the phase-8
+         tree, 2 steps, a validation and its figure with their exact
+         launches, its latest checkpoint loaded into one process, each
+         rank's slices the file's; then 2,2 on four gloo ranks, one float32
+         step without dropout, 8 images a data rank, against one process on
+         the 16; with two cards or more, 1,m over NCCL on m = min(4, cards)
+         cards (bf16 steps and the float32 check)
      and phase 3 also times chamfer_wide_kernel (512 bins, on no main path)
      against its plain version and its bound.
  10. offline cue generation, with seeded weights at full width (no checkpoint
@@ -181,7 +202,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
  13. one JSON line on the kernels (launches summed over the main paths:
      serving, training, the eval and cue training runs, the train CLI, the
      B5 evaluation, both DDP ranks, the DDP driver run, the remat steps,
-     phase 10's cue training and phase 12's request;
+     the tensor-parallel ranks' steps and driver run, phase 10's cue
+     training and phase 12's request;
      the float32 head backward, which no main path runs, from the float32
      step checks), then the result line.
 
@@ -190,6 +212,7 @@ imports no JAX: it is the quickest proof that the port runs on the card.
 """
 
 import argparse
+import gc
 import hashlib
 import importlib.util
 import json
@@ -2007,6 +2030,418 @@ def pretrained_backbone(gen, work):
     del model
 
 
+# --- phase 9e: tensor parallelism ---------------------------------------------
+
+TP_MESH = "1,2"  # the model group of the one card's gloo ranks
+TP_MESH_22 = "2,2"
+TP_WARMUP, TP_STEPS = 2, 6
+TP_LOSS_RTOL = 2e-4  # float32, against one process (JAX's 1-vs-N parity)
+TP_GRAD_TOL = 2e-2  # float32, of the largest gradient value (tests/test_torch_port_tp.py)
+TP_COLLECTIVE = "model group collective"  # the profiler's name for their ranges
+TP_SPAWN_LIMIT_S = 300  # a spawn of ranks that takes longer has hung
+# the share of the card's free memory that the gloo ranks on it take in all
+# (their CUDA contexts and gloo's staging take the rest)
+TP_CARD_SHARE = 0.9
+
+
+def tp_state(args, weights, dropout, device):
+    """The flagship model with `weights`, cut to this rank's slices
+    (models/tp.py) on the card, its train state under DDP."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.models.tp import shard_model
+    from mde_tpu_torch.train import create_train_state, wrap_ddp
+    model = build_model(args)
+    model.load_state_dict(weights, strict=True)
+    if not dropout:
+        no_dropout(model)
+    model = shard_model(model).to(device)
+    return wrap_ddp(create_train_state(model, args, steps_per_epoch=2693), [device.index])
+
+
+def clipped_step(state, args, batch):
+    """One training step; returns (metrics as floats, the gradients the
+    update applied (the tensor-parallel slices averaged over their data
+    group and gathered; all of them clipped), on the host, the clip's global
+    norm). Under tensor parallelism every rank of the model group calls it."""
+    from mde_tpu_torch import parallel
+    from mde_tpu_torch.train import make_train_step
+    seen = {}
+    real = state.optimizer.step
+
+    def watch(index):
+        seen["norm"] = real(index).item()
+        seen["grads"] = {parallel.plain_name(k): p.grad.detach().clone()
+                         for k, p in state.model.named_parameters()}
+        return seen["norm"]
+
+    state.optimizer.step = watch
+    state, metrics = make_train_step(args)(state, batch)
+    layout = getattr(state.model, "tp_layout", None) or {}
+    grads = parallel.gather_state_dict(seen["grads"], layout)
+    torch.cuda.synchronize()
+    return ({k: v.item() for k, v in metrics.items()}, {k: v.cpu() for k, v in grads.items()},
+            seen["norm"])
+
+
+def replicated_digest(model):
+    """SHA-256 of the parameters the model group does not split."""
+    from mde_tpu_torch import parallel
+    digest = hashlib.sha256()
+    for k, p in model.named_parameters():
+        if parallel.plain_name(k) not in model.tp_layout:
+            digest.update(p.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def collective_share(state, step, batch):
+    """One bf16 step under the profiler with the model group's collectives in
+    ranges of their own: (device ms inside them, the step's device busy ms,
+    host ms inside them, the step's wall ms, their count). Every rank of
+    the group runs it."""
+    from mde_tpu_torch.parallel import tensor
+
+    def ranged(fn):
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(TP_COLLECTIVE):
+                return fn(*a, **k)
+        return wrapped
+
+    real = tensor._all_reduce, tensor.place_and_gather
+    tensor._all_reduce, tensor.place_and_gather = map(ranged, real)
+    try:
+        _, _, busy_ms, wall_ms, prof = profiled(lambda: step(state, batch))
+    finally:
+        tensor._all_reduce, tensor.place_and_gather = real
+    ranges = [e for e in prof.events() if e.name == TP_COLLECTIVE]
+    return (sum(e.device_time_total for e in ranges) / 1e3, busy_ms,
+            sum(e.cpu_time_total for e in ranges) / 1e3, wall_ms, len(ranges))
+
+
+def tp_bf16_steps(weights, batch, device, profile):
+    """The flagship bf16 step on this rank: warm-up and timed steps with
+    their launches, the losses, the peak, the replicated parameters' digest
+    after them, and with `profile` the collectives' share of one more step."""
+    from mde_tpu_torch.train import make_train_step
+    args = flagship_args()
+    state = tp_state(args, weights, True, device)
+    step = make_train_step(args)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TP_WARMUP):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    ms, per_step, losses = [], [], []
+    for _ in range(TP_STEPS):
+        counts = read_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - counts[k] for k, v in read_counts().items()})
+        losses.append(m["loss"].item())
+    out = dict(ms=ms, per_step=per_step, launches=read_counts(), losses=losses,
+               peak=torch.cuda.max_memory_allocated(), digest=replicated_digest(state.model),
+               split=len(state.model.tp_layout))
+    if profile:
+        out["share"] = collective_share(state, step, batch)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_f32_step(weights, batch, device, dropout):
+    """One float32 step on this rank: (metrics, gathered gradients, norm)
+    and its launches."""
+    args = flagship_args(compute_dtype="float32")
+    state = tp_state(args, weights, dropout, device)
+    reset_counts()
+    result = clipped_step(state, args, batch)
+    counts = read_counts()
+    del state
+    torch.cuda.empty_cache()
+    return result, counts
+
+
+def tp_driver(root, mesh_shape):
+    """main_train --distributed --mesh_shape on the phase-8 tree, 2 steps and
+    the closing validation: the launches, this rank's slices of the split
+    parameters and the experiment directory."""
+    from mde_tpu_torch import parallel
+    from mde_tpu_torch.config import TrainArgParser, parse_cli
+    from mde_tpu_torch.train import driver
+    args = parse_cli(TrainArgParser(), cli_argv(root) + [
+        "--distributed", "--mesh_shape", mesh_shape, "--root", str(root / "runs_tp")])
+    reset_counts()
+    t0 = time.perf_counter()
+    state = driver.main_train(args, max_steps=2, interactive=False)
+    run_s = time.perf_counter() - t0
+    local = parallel.local_state_dict(state.model)
+    return dict(launches=read_counts(), step=state.step, exp_dir=args.exp_dir, run_s=run_s,
+                split={k: local[k].cpu() for k in state.model.tp_layout},
+                layout=dict(state.model.tp_layout))
+
+
+def tp_rank(index, stages, backend, weights_path, out_dir, profile, free_bytes):
+    """Phase 9e, one spawned process: for each stage (world size, mesh shape,
+    jobs, port) whose world holds it, join that world as rank `index` (gloo
+    on the one card, where NCCL refuses two ranks on one device, or NCCL on
+    card `index`), run the jobs and write what the main process checks
+    (rank 0 the gathered gradients), then leave it. One spawn serves every
+    stage, so the ranks reach the card once. Ranks that share the one card
+    each take at most their share of the `free_bytes` the spawn found, so
+    that cuDNN picks algorithms whose workspace fits beside the others'."""
+    from mde_tpu_torch import parallel
+    device = torch.device("cuda", index if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    weights = torch.load(weights_path)
+    for world_size, mesh_shape, jobs, port in stages:
+        if index >= world_size:
+            continue
+        gc.collect()  # the last stage's DDP and group, before this one's peaks
+        torch.cuda.empty_cache()
+        if backend == "gloo":
+            total = torch.cuda.get_device_properties(device).total_memory
+            torch.cuda.set_per_process_memory_fraction(
+                TP_CARD_SHARE * free_bytes / world_size / total, device)
+        parallel.init_distributed(index, world_size, f"tcp://127.0.0.1:{port}", backend, "cuda",
+                                  mesh_shape)
+        try:
+            g = parallel.grid()
+            n = TRAIN_BATCH // g.data
+            batch = {k: v[g.data_index * n:(g.data_index + 1) * n].to(device)
+                     for k, v in ddp_batch().items()}
+            out = {}
+            for job in jobs:
+                if job == "bf16":  # every rank runs the profiled step: it has collectives
+                    out[job] = tp_bf16_steps(weights, batch, device, profile)
+                elif job in ("f32", "f32 no dropout"):
+                    (metrics, grads, norm), counts = tp_f32_step(weights, batch, device,
+                                                                 job == "f32")
+                    out[job] = dict(metrics=metrics, norm=norm, launches=counts,
+                                    grads=grads if index == 0 else None)
+                elif job == "driver":
+                    out[job] = tp_driver(Path(out_dir).parent, mesh_shape)
+            torch.save(out, os.path.join(out_dir, f"{backend}_{mesh_shape}_{index}.pt"))
+        finally:
+            parallel.destroy_distributed()
+
+
+def spawn_tp(work, backend, stages, profile=False):
+    """Run the stages ((world size, mesh shape, jobs), largest world first)
+    on one spawn of processes; each stage's results, by mesh shape, and the
+    spawn's seconds. Processes still running after TP_SPAWN_LIMIT_S (a hung
+    collective) are ended and the phase fails."""
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"TP {backend}: {free} of {total} bytes free on card 0 before the spawn; this "
+          f"process holds {torch.cuda.memory_allocated()} allocated, "
+          f"{torch.cuda.memory_reserved()} reserved")
+    t0 = time.perf_counter()
+    stages = [(w, mesh, jobs, free_port()) for w, mesh, jobs in stages]
+    context = mp.start_processes(tp_rank, args=(stages, backend, str(work / "weights.pt"),
+                                                str(work), profile, free),
+                                 nprocs=max(w for w, *_ in stages), join=False,
+                                 start_method="spawn")
+    try:
+        while not context.join(timeout=5):
+            check(time.perf_counter() - t0 < TP_SPAWN_LIMIT_S,
+                  f"TP {backend}: the ranks ran over {TP_SPAWN_LIMIT_S} s")
+    finally:
+        for process in context.processes:
+            if process.is_alive():
+                process.terminate()
+    spawn_s = time.perf_counter() - t0
+    return ({mesh: [torch.load(work / f"{backend}_{mesh}_{r}.pt") for r in range(w)]
+             for w, mesh, _, _ in stages}, spawn_s)
+
+
+def check_tp_steps(label, ranks, want):
+    """Every rank's float32 metrics, and rank 0's gathered gradients,
+    against one process's (`want`). The model ranks of a data index compute
+    the replicated layers each on its own, so their float32 losses may
+    differ by the card's choice of kernels; their update is DDP's one
+    mean."""
+    got = ranks[0]
+    gap = max(abs(r["metrics"][k] - got["metrics"][k]) / abs(got["metrics"][k])
+              for r in ranks for k in ("loss", "silog", "chamfer"))
+    w_metrics, w_grads, w_norm = want
+    largest = max(g.abs().max().item() for g in w_grads.values())
+    err = max(((got["grads"][k] - g).abs().max().item() / largest, k)
+              for k, g in w_grads.items())
+    print(f"{label}: loss {got['metrics']['loss']:.7f} against {w_metrics['loss']:.7f}, silog "
+          f"{got['metrics']['silog']:.7f} against {w_metrics['silog']:.7f}, chamfer "
+          f"{got['metrics']['chamfer']:.7e} against {w_metrics['chamfer']:.7e} (rtol "
+          f"{TP_LOSS_RTOL}); the clip's norm {got['norm']:.6f} against {w_norm:.6f}; largest "
+          f"gradient error {err[0]:.3e} of the largest value ({err[1]}; tolerance "
+          f"{TP_GRAD_TOL}); the ranks' metrics {gap:.3e} apart (relative), their norms "
+          f"{[r['norm'] for r in ranks]}; launches a rank {[r['launches'] for r in ranks]}")
+    for r in ranks:
+        for k in ("loss", "silog", "chamfer"):
+            check(abs(r["metrics"][k] - w_metrics[k]) <= TP_LOSS_RTOL * abs(w_metrics[k]),
+                  f"{label}: {k} {r['metrics'][k]} against {w_metrics[k]}")
+    check(err[0] <= TP_GRAD_TOL, f"{label}: gradients {err}")
+    check(all(r["launches"] == F32_STEP_LAUNCHES for r in ranks),
+          f"{label}: launches {[r['launches'] for r in ranks]}")
+
+
+def check_tp_bf16(label, ranks, synthetic_ms):
+    """Each rank's bf16 steps: 1/2/1 launches a step, finite and equal
+    losses, the replicated parameters equal; prints the step medians."""
+    for r, out in enumerate(ranks):
+        for i, counts in enumerate(out["per_step"]):
+            check(counts == STEP_LAUNCHES, f"{label} rank {r} step {i}: launches {counts}, "
+                  f"expected {STEP_LAUNCHES}")
+        check(all(np.isfinite(out["losses"])), f"{label} rank {r}: loss not finite")
+    check(all(out["losses"] == ranks[0]["losses"] for out in ranks),
+          f"{label}: the ranks' logged losses differ")
+    check(len({out["digest"] for out in ranks}) == 1,
+          f"{label}: the replicated parameters differ between the ranks")
+    print(f"{label}: {len(ranks)} ranks, {ranks[0]['split']} parameters split a rank, batch "
+          f"{TRAIN_BATCH} of {TRAIN_HW[0]}x{TRAIN_HW[1]} on every rank, bf16 autocast, "
+          f"{TP_STEPS} steps after {TP_WARMUP}: median a rank "
+          + ", ".join(f"{statistics.median(out['ms']):.3f}" for out in ranks)
+          + f" ms (rank 0 all: {', '.join(f'{v:.3f}' for v in ranks[0]['ms'])})"
+          + ("" if synthetic_ms is None else
+             f" against phase 5's one-process step {synthetic_ms:.3f} ms") + "; losses "
+          f"{[round(v, 6) for v in ranks[0]['losses']]}; peak a rank "
+          f"{[out['peak'] for out in ranks]} bytes; replicated parameters equal on the ranks "
+          f"(SHA-256 {ranks[0]['digest'][:16]}); launches a rank "
+          f"{[out['launches'] for out in ranks]}")
+    if "share" in ranks[0]:
+        dev_ms, busy_ms, host_ms, wall_ms, n = ranks[0]["share"]
+        print(f"{label}: profiled step on rank 0: {n} model-group collectives, {dev_ms:.3f} ms "
+              f"of device time inside them of {busy_ms:.3f} ms busy "
+              f"({100 * dev_ms / busy_ms:.1f}%), {host_ms:.3f} ms of host time inside them of "
+              f"a {wall_ms:.3f} ms step ({100 * host_ms / wall_ms:.1f}%)")
+
+
+def check_tp_driver(ranks, state_dict):
+    """main_train's run on both ranks; its latest checkpoint loaded into one
+    process: every split slice of each rank is the file's slice, every other
+    tensor the one-process shape, all finite. Returns its launches."""
+    from mde_tpu_torch.checkpoint import load_checkpoint
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state
+    outs = [r["driver"] for r in ranks]
+    # bf16: 2 steps, the validation's frames and 2 figures (steps 0 and 2)
+    expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
+                "bins_head_tc_fwd": 2 + CLI_EVAL_FRAMES + 2, "bins_head_tc_bwd": 4, "chamfer": 2}
+    for r, out in enumerate(outs):
+        check(out["step"] == 2 and out["launches"] == expected,
+              f"TP main_train rank {r}: step {out['step']}, launches {out['launches']}")
+    exp_dir = Path(outs[0]["exp_dir"])
+    (latest,) = exp_dir.glob("*_latest.pt")
+    args = flagship_args()
+    model = build_model(args)
+    state = create_train_state(model, args, steps_per_epoch=CLI_STEPS_PER_EPOCH)
+    state, _ = load_checkpoint(str(latest), state)
+    full = model.state_dict()
+    check(state.step == 2 and full.keys() == state_dict.keys()
+          and all(full[k].shape == v.shape for k, v in state_dict.items()),
+          "TP checkpoint: not the one-process layout")
+    check(all(torch.isfinite(v).all() for v in full.values() if v.is_floating_point()),
+          "TP checkpoint: not finite")
+    for r, out in enumerate(outs):
+        for k, local in out["split"].items():
+            dim, index = out["layout"][k]
+            check(torch.equal(full[k].index_select(dim, index), local),
+                  f"TP checkpoint: rank {r}'s {k} is not the file's slice")
+    print(f"TP main_train: --distributed --mesh_shape {TP_MESH} on {len(outs)} gloo ranks: 2 "
+          f"steps and a validation of {CLI_EVAL_FRAMES} frames in "
+          + ", ".join(f"{out['run_s']:.2f}" for out in outs)
+          + f" s; launches a rank {outs[0]['launches']} (expected {expected}); "
+          f"{latest.name} ({latest.stat().st_size} bytes) loaded into one process, each rank's "
+          f"{len(outs[0]['split'])} slices the file's")
+    launches = dict.fromkeys(STEP_LAUNCHES, 0)
+    for out in outs:
+        for k, v in out["launches"].items():
+            launches[k] += v
+    return launches
+
+
+def gloo_ranks(work, state_dict, synthetic_ms, profile, want, add):
+    """Phase 9e on the one card: one spawn of four gloo processes, 2,2 (a
+    float32 step without dropout) then 1,2 on two of them (bf16 steps, a
+    float32 step with dropout, the driver); their checks, their launches
+    through `add`."""
+    results, spawn_s = spawn_tp(work, "gloo", [(4, TP_MESH_22, ["f32 no dropout"]),
+                                               (2, TP_MESH, ["bf16", "f32", "driver"])],
+                                profile)
+    ranks = results[TP_MESH]
+    check_tp_bf16(f"TP {TP_MESH} gloo", [r["bf16"] for r in ranks], synthetic_ms)
+    check_tp_steps(f"TP {TP_MESH} gloo float32 step, dropout on, against one process",
+                   [r["f32"] for r in ranks], want[True])
+    for r in ranks:
+        add(r["bf16"]["launches"])
+        add(r["f32"]["launches"])
+    add(check_tp_driver(ranks, state_dict))
+
+    ranks = results[TP_MESH_22]
+    check_tp_steps(f"TP {TP_MESH_22} gloo float32 step, {TRAIN_BATCH // 2} images a data rank, "
+                   f"dropout off, against one process on {TRAIN_BATCH}",
+                   [r["f32 no dropout"] for r in ranks], want[False])
+    for r in ranks:
+        add(r["f32 no dropout"]["launches"])
+    print(f"TP gloo: one spawn of 4 processes, {TP_MESH_22} on 4 then {TP_MESH} on 2 of them, "
+          f"{spawn_s:.1f} s")
+
+
+def tensor_parallel(state_dict, root, synthetic_ms, profile, gloo=True):
+    """Phase 9e: the flagship under --mesh_shape 1,2 on two gloo ranks of
+    the one card (bf16 steps, a float32 step with dropout against one
+    process's, the driver), 2,2 on four (a float32 step without dropout),
+    and with two cards or more 1,m over NCCL (alone without `gloo`).
+    Returns the launches of the ranks' steps and driver runs."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state
+    t0 = time.perf_counter()
+    work = root / "tp"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save(state_dict, work / "weights.pt")
+    device = torch.device("cuda", 0)
+    want = {}
+    for dropout in (True, False) if gloo else (True,):
+        args = flagship_args(compute_dtype="float32")
+        model = build_model(args)
+        model.load_state_dict(state_dict, strict=True)
+        if not dropout:
+            no_dropout(model)
+        state = create_train_state(model.to(device), args, steps_per_epoch=2693)
+        want[dropout] = clipped_step(state, args, {k: v.to(device) for k, v in ddp_batch().items()})
+        del state, model
+        torch.cuda.empty_cache()
+
+    launches = dict.fromkeys(STEP_LAUNCHES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    if gloo:
+        gloo_ranks(work, state_dict, synthetic_ms, profile, want, add)
+    cards = torch.cuda.device_count()
+    check(gloo or cards >= 2, "TP over NCCL needs two cards or more")
+    if cards >= 2:
+        m = min(4, cards)
+        results, spawn_s = spawn_tp(work, "nccl", [(m, f"1,{m}", ["bf16", "f32"])])
+        ranks = results[f"1,{m}"]
+        check_tp_bf16(f"TP 1,{m} NCCL over {m} cards", [r["bf16"] for r in ranks], synthetic_ms)
+        check_tp_steps(f"TP 1,{m} NCCL float32 step, dropout on, against one process",
+                       [r["f32"] for r in ranks], want[True])
+        for r in ranks:
+            add(r["bf16"]["launches"])
+            add(r["f32"]["launches"])
+        print(f"TP 1,{m} NCCL: spawn and run {spawn_s:.1f} s")
+    print(f"tensor parallelism: phase 9e in {time.perf_counter() - t0:.1f} s; gloo ranks on one "
+          f"card measure correctness and host-staged collectives, not the scaling of tensor "
+          f"parallelism")
+    return launches
+
+
 # --- phase 10: offline cue generation ----------------------------------------
 
 OFFLINE_TRAIN_FRAMES, OFFLINE_EVAL_FRAMES = 6, 2  # 8 frames, each gets its side files
@@ -3110,12 +3545,41 @@ def semseg_zoo_and_demo(root, gen, card):
     return counts
 
 
+def only_tensor_parallel(gen, profile_dir, nccl_only):
+    """--only tp: phase 5's steps (for the median beside) and phase 9e on a
+    phase-8 tree; --only tp-nccl: phase 9e's NCCL ranks and their
+    one-process reference alone. No kernels line and no result line."""
+    from mde_tpu_torch.models import build_model
+    flagship = flagship_args()
+    model = build_model(flagship)
+    state_dict = seeded_state_dict(model, gen)
+    model.load_state_dict(state_dict, strict=True)
+    train_ms = None
+    if not nccl_only:
+        _, train_ms, _ = train(flagship, model.cuda(), gen, None, "train")
+    del model
+    torch.cuda.empty_cache()
+    build_dir = REPO / ".build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root = Path(tmp)
+        if not nccl_only:
+            nyu_tree(root / "nyu")
+        tensor_parallel(state_dict, root, train_ms, profile_dir is not None, gloo=not nccl_only)
+    print(f"chip_smoke --only {'tp-nccl' if nccl_only else 'tp'}: phase 9e passed")
+    return 0
+
+
 def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="also profile requests under four cuDNN settings and the "
                              "training steps, and write the tables to DIR; print the cue "
                              "ops' share of the A step")
+    parser.add_argument("--only", choices=["tp", "tp-nccl"], default=None,
+                        help="tp: run the toolchain, the build, phase 5 and phase 9e only; "
+                             "tp-nccl: the build and phase 9e's NCCL ranks only (two cards "
+                             "or more)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
@@ -3135,6 +3599,8 @@ def main(argv):
                       bins_head._TC_SOURCE: bins_head.tc_library,
                       chamfer._SOURCE: chamfer.library, native.SOURCE: native.library})
 
+    if args.only:
+        return only_tensor_parallel(gen, args.profile, nccl_only=args.only == "tp-nccl")
     serving_fwd = check_head_forward(bins_head, gen, 2, (FRAME_HW[0] // 2, FRAME_HW[1] // 2),
                                      "serving")[torch.float32]
     fwd = check_head_forward(bins_head, gen, TRAIN_BATCH, (TRAIN_HW[0] // 2, TRAIN_HW[1] // 2),
@@ -3208,6 +3674,7 @@ def main(argv):
         add(nccl_main_train(root))
         add(remat(state_dict, gen, args.profile, train_ms, train_peak))
         pretrained_backbone(gen, root)
+        add(tensor_parallel(state_dict, root, train_ms, args.profile is not None))
         add(offline(root, card))
         offline_training(root, card, args.profile)
         add(semseg_zoo_and_demo(root, gen, card))

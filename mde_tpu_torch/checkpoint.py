@@ -6,7 +6,11 @@ and read a training checkpoint in the reference layout (model_io.py:15-26):
 "epoch": epoch}, so `mde_tpu.checkpoint.convert_reference_checkpoint` reads a
 port checkpoint as it reads an AdaBins .pt file. One key more, "step" (the
 updates taken, which the OneCycle schedule is evaluated at), lets a resumed
-run continue its schedule; the converter ignores it.
+run continue its schedule; the converter ignores it. Under tensor
+parallelism (`model.tp_layout`, models/tp.py) the file holds the gathered
+tensors and AdamW moments, the same file one process writes: saving is a
+collective of the model group, and global rank 0 writes; loading cuts the
+file to the rank's slices, under any grid.
 
 `state_dict_from_flax` turns the JAX package's (params, batch_stats) trees,
 as numpy arrays, into a port state_dict under the reference's torch names; it
@@ -32,6 +36,8 @@ import numpy as np
 import torch
 
 from .models.efficientnet import _B0_STAGES, EFFICIENTNET_CONFIGS, round_repeats
+from .parallel import (gather_state_dict, load_local_state_dict, local_state_dict,
+                       shard_state_dict, world)
 
 
 def _strip_prefixes(sd: dict) -> dict:
@@ -47,15 +53,32 @@ def _strip_prefixes(sd: dict) -> dict:
     return out
 
 
+def _moments(optimizer_state: dict, names: list, layout: dict, cut) -> dict:
+    """The AdamW state_dict with each split parameter's moments through
+    `cut(tensor, name)`."""
+    state = {i: {k: cut(v, names[i]) if k.startswith("exp_avg") and names[i] in layout else v
+                 for k, v in s.items()} for i, s in optimizer_state["state"].items()}
+    return {**optimizer_state, "state": state}
+
+
 def save_checkpoint(state, epoch: int, filename: str, root: str = "./checkpoints") -> str:
     """Write `state` (train/state.py: the model, its optimizer and step) to
     root/filename in the reference layout, through a temporary file renamed
-    into place; returns the path."""
-    os.makedirs(root, exist_ok=True)
+    into place; returns the path. Under tensor parallelism every rank calls
+    it (it gathers the slices) and global rank 0 writes."""
+    layout = getattr(state.model, "tp_layout", None) or {}
+    model_sd = state.model.state_dict()
+    optimizer_sd = state.optimizer.optimizer.state_dict()
+    if layout:
+        model_sd = gather_state_dict(local_state_dict(state.model), layout)
+        optimizer_sd = _moments(optimizer_sd, state.optimizer.names, layout,
+                                lambda t, name: gather_state_dict({name: t}, layout)[name])
     path = os.path.abspath(os.path.join(root, filename))
+    if world()[0] != 0:
+        return path
+    os.makedirs(root, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.optimizer.state_dict(),
+    torch.save({"model": model_sd, "optimizer": optimizer_sd,
                 "epoch": int(epoch), "step": int(state.step)}, tmp)
     os.replace(tmp, path)
     return path
@@ -63,11 +86,19 @@ def save_checkpoint(state, epoch: int, filename: str, root: str = "./checkpoints
 
 def load_checkpoint(path: str, state):
     """Restore a `save_checkpoint` file into `state` (its model, optimizer
-    and step), on the model's device; returns (state, epoch)."""
+    and step), on the model's device, cut to the rank's slices under tensor
+    parallelism; returns (state, epoch)."""
     device = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict(_strip_prefixes(ckpt["model"]), strict=True)
-    state.optimizer.optimizer.load_state_dict(ckpt["optimizer"])
+    model_sd, optimizer_sd = _strip_prefixes(ckpt["model"]), ckpt["optimizer"]
+    layout = getattr(state.model, "tp_layout", None) or {}
+    if layout:
+        load_local_state_dict(state.model, shard_state_dict(model_sd, layout))
+        optimizer_sd = _moments(optimizer_sd, state.optimizer.names, layout,
+                                lambda t, name: shard_state_dict({name: t}, layout)[name])
+    else:
+        state.model.load_state_dict(model_sd, strict=True)
+    state.optimizer.optimizer.load_state_dict(optimizer_sd)
     state.step = int(ckpt["step"])
     return state, int(ckpt["epoch"])
 

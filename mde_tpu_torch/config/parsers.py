@@ -11,9 +11,12 @@ computes ad hoc in train.py:587-602 / evaluate.py:170-171 (batch_size, mode,
 chamfer, env-var expansion).
 
 The port adds one flag, `--device` (default cuda; `--device cpu` runs on the
-CPU, as the tests do). The flags of the JAX package's TPU machinery
-(`--mesh_shape`, `--steps_per_dispatch`, `--hires_impl packed`) parse and
-change nothing: the port runs the plain path on one device.
+CPU, as the tests do). `--mesh_shape d,m` lays the `--distributed` world of
+d·m processes out as JAX lays its devices out, with tensor parallelism over
+the m model ranks (`parallel/`, `models/tp.py`); one size, or none, is data
+parallelism over the world. The flags of the JAX package's TPU dispatch
+(`--steps_per_dispatch`, `--hires_impl packed`) parse and change nothing:
+the port runs the plain path.
 """
 
 import argparse
@@ -90,8 +93,10 @@ class CommonArgParser(argparse.ArgumentParser):
         # The JAX package's extensions (absent from the reference; all
         # defaulted so reference param files parse and behave identically).
         self.add_argument("--mesh_shape", default=None, type=str,
-                          help="Device mesh as 'data[,model]' sizes, e.g. '8' or '4,2'. "
-                               "Default: all visible devices on a single data axis.")
+                          help="Process grid as 'data[,model]' sizes, e.g. '8' or '4,2' "
+                               "(their product is the --distributed world; model > 1 is "
+                               "tensor parallelism). Default: the whole world on the data "
+                               "axis.")
         self.add_argument("--compute_dtype", default="bfloat16", type=str,
                           help="Activation compute dtype (bfloat16 or float32). Params stay float32.")
         self.add_argument("--pretrained_backbone", default=None, type=str,

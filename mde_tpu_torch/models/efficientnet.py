@@ -15,6 +15,11 @@ training forward that records gradients a block keeps only its input, and
 its forward runs again in the backward, under `norm.recomputation()` so
 that its BatchNorms update their running stats once.
 
+Tensor parallelism (`models/tp.py` sets `tp`, the rank's `parallel.Grid`):
+`conv_head` holds this rank's rows of output channels; its output is
+gathered over the model group before `bn2` and the decoder read it
+(features[11]).
+
 The encoder returns the feature-list contract the decoder relies on:
     features[0]  input
     features[1]  conv_stem out          features[2] stem BN out
@@ -31,6 +36,7 @@ import torch.utils.checkpoint
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import copy_to_model, gather_from_model
 from .norm import BatchNorm2d, recomputation
 
 # B0 stage table: (expand_ratio, kernel, stride, base_channels, base_repeats)
@@ -190,6 +196,7 @@ class EfficientNetEncoder(nn.Module):
         self.blocks = nn.Sequential(*stages)
         self.conv_head = nn.Conv2d(chs, head_chs, 1, bias=False)
         self.bn2 = _bn(head_chs)
+        self.tp = None
 
     def forward(self, x):
         features = [x]
@@ -206,7 +213,10 @@ class EfficientNetEncoder(nn.Module):
                     block, y, use_reentrant=False, context_fn=_recompute_contexts)
                     if remat else block(y))
             features.append(y)
-        y = self.conv_head(y)
+        if self.tp is None:
+            y = self.conv_head(y)
+        else:  # column-parallel: this rank's channels, then all of them
+            y = gather_from_model(self.conv_head(copy_to_model(y)), 1)
         features.append(y)
         y = self.bn2(y)
         features.append(y)

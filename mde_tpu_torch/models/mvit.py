@@ -18,6 +18,15 @@ In training mode the dropout masks are drawn from the `generator` passed to
 `forward` (the train step seeds one per step, as the JAX step folds its rng
 per step); without one, from torch's global generator. The two frameworks'
 masks differ for the same seed.
+
+Tensor parallelism (`models/tp.py` sets `tp`, the rank's `parallel.Grid`):
+an attention module whose `in_proj` holds the q, k and v rows of this
+rank's H/m heads runs those heads and closes `out_proj` (its input columns
+of those heads) with a sum over the model group, the bias added once after
+it; a layer whose `linear1` holds rows of the FFN runs its slice and closes
+`linear2` likewise. Dropout on a split tensor (the local heads' attention
+weights, the FFN slice) draws the whole tensor's mask and keeps its slice,
+so the ranks' generators stay in step with one process's.
 """
 
 import math
@@ -26,16 +35,36 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import copy_to_model, reduce_from_model
+
 _LN_EPS = 1e-6  # flax nn.LayerNorm default, as in mde_tpu/models/mvit.py:67,74
 
 
-def dropout(x, rate: float, training: bool, generator=None):
+def dropout(x, rate: float, training: bool, generator=None, shard=None):
     """flax nn.Dropout: keep each value with probability 1 - rate and scale
-    the kept ones by 1 / (1 - rate); the mask comes from `generator`."""
+    the kept ones by 1 / (1 - rate); the mask comes from `generator`. With
+    `shard=(dim, parts, index)` x is slice `index` of `parts` along `dim` of
+    a larger tensor: the larger tensor's mask is drawn, and x's slice of it
+    kept."""
     if not training or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    shape = list(x.shape)
+    if shard is not None:
+        dim, parts, index = shard
+        shape[dim] *= parts
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    if shard is not None:
+        keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _row_parallel(x, linear):
+    """`linear` on this rank's input columns, summed over the model group
+    (in at least float32, one rounding to x's dtype after the bias, as one
+    product rounds once), then its bias."""
+    partial = F.linear(x, linear.weight)
+    wide = torch.promote_types(partial.dtype, torch.float32)
+    return (reduce_from_model(partial.to(wide)) + linear.bias).to(partial.dtype)
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -50,19 +79,25 @@ class MultiheadSelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self.tp = None
 
     def forward(self, x, generator=None):
         # x: (N, S, E)
         n, s, e = x.shape
         h = self.num_heads
         hd = e // h
+        shard = None
+        if self.tp is not None:  # this rank's heads
+            h //= self.tp.model
+            shard = (1, self.tp.model, self.tp.model_index)
+            x = copy_to_model(x)
         q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
         q, k, v = (t.reshape(n, s, h, hd).transpose(1, 2) for t in (q, k, v))
         logits = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(hd)
         weights = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        weights = dropout(weights, self.dropout, self.training, generator)
-        out = torch.matmul(weights, v).transpose(1, 2).reshape(n, s, e)
-        return self.out_proj(out)
+        weights = dropout(weights, self.dropout, self.training, generator, shard)
+        out = torch.matmul(weights, v).transpose(1, 2).reshape(n, s, h * hd)
+        return self.out_proj(out) if self.tp is None else _row_parallel(out, self.out_proj)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -77,11 +112,16 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(embed_dim, eps=_LN_EPS)
         self.norm2 = nn.LayerNorm(embed_dim, eps=_LN_EPS)
         self.dropout = dropout
+        self.tp = None
 
     def forward(self, x, generator=None):
-        drop = lambda t: dropout(t, self.dropout, self.training, generator)
+        drop = lambda t, shard=None: dropout(t, self.dropout, self.training, generator, shard)
         x = self.norm1(x + drop(self.self_attn(x, generator)))
-        y = self.linear2(drop(F.relu(self.linear1(x))))
+        if self.tp is None:
+            y = self.linear2(drop(F.relu(self.linear1(x))))
+        else:  # this rank's slice of the FFN
+            shard = (-1, self.tp.model, self.tp.model_index)
+            y = _row_parallel(drop(F.relu(self.linear1(copy_to_model(x))), shard), self.linear2)
         return self.norm2(x + drop(y))
 
 

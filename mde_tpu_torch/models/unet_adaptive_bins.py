@@ -29,6 +29,18 @@ same switch. `forward(..., generator)` draws the mViT dropout masks in
 training mode from `generator`. `remat="encoder"` checkpoints the encoder's
 blocks (models/efficientnet.py).
 
+Under tensor parallelism `conv_out.0` holds this rank's rows of bins, and
+its weight and bias are gathered over the model group at use
+(`models/tp.py`): every rank runs the whole head, fused or plain, as JAX's
+`fused_bins_head_sharded` runs the kernel with its weight replicated.
+
+`n_query_channels` (128, the reference's) is the number of mViT tokens
+after the first that become range-attention queries, and conv_out's input
+width; an input needs n_query_channels + 1 tokens. Below 129 tokens the
+JAX model slices fewer queries and builds conv_out on them
+(`mde_tpu/models/mvit.py`'s `tgt[:, 1:129]`), which a port model with that
+many queries computes: the tests use that at small sizes.
+
 Outputs: (bin_edges (N, n_bins + 1), or None for noAdaBins;
 pred (N, 1, H/2, W/2)).
 """
@@ -46,7 +58,6 @@ from .decoder import DecoderBN
 from .efficientnet import EfficientNetEncoder, stage_channels
 from .mvit import MViT
 
-_MIN_TOKENS = 129  # token 0 regresses the bins, tokens 1..128 are the queries
 _PATCH = 16
 
 
@@ -103,9 +114,12 @@ class UnetAdaptiveBins(nn.Module):
                  norm: str = "linear", encoder_name: str = "efficientnet-b5",
                  semantics_mode=None, instance_segmentation_mode=None,
                  insertion_point: str = "before-attn", image: str = "rgb",
-                 fused_head: bool = False, remat: str = "none"):
+                 fused_head: bool = False, remat: str = "none",
+                 n_query_channels: int = 128):
         super().__init__()
         self.n_bins = n_bins
+        # token 0 regresses the bins, the next n_query_channels are the queries
+        self.min_tokens = n_query_channels + 1
         self.min_val = min_val
         self.max_val = max_val
         self.fused_head = fused_head
@@ -151,10 +165,10 @@ class UnetAdaptiveBins(nn.Module):
                                  mode="noAdaBins" if self.no_adabins else "AdaBins")
         if not self.no_adabins:
             mvit_chs = 128 + (n_cues if self.cues_at == "before-attn" else 0)
-            self.adaptive_bins_layer = MViT(mvit_chs, n_query_channels=128,
+            self.adaptive_bins_layer = MViT(mvit_chs, n_query_channels=n_query_channels,
                                             patch_size=_PATCH, dim_out=n_bins,
                                             embedding_dim=128, norm=norm)
-            self.conv_out = nn.Sequential(nn.Conv2d(128, n_bins, 1, 1, 0),
+            self.conv_out = nn.Sequential(nn.Conv2d(n_query_channels, n_bins, 1, 1, 0),
                                           nn.Softmax(dim=1))
 
     def _with_cues(self, x, semantics, instance_labels, instance_areas, image_pixels):
@@ -203,16 +217,18 @@ class UnetAdaptiveBins(nn.Module):
                 unet_out, *(None if c is None else resize_nearest(c, (h, w))
                             for c in (semantics, instance_labels, instance_areas)),
                 image_pixels)
-        if (h // _PATCH) * (w // _PATCH) < _MIN_TOKENS:
+        if (h // _PATCH) * (w // _PATCH) < self.min_tokens:
             raise ValueError(
-                f"the mViT head needs at least {_MIN_TOKENS} tokens, "
+                f"the mViT head needs at least {self.min_tokens} tokens, "
                 f"(H/32)*(W/32) for an HxW input; a {h}x{w} decoder map gives "
                 f"{(h // _PATCH) * (w // _PATCH)}")
         bin_widths_normed, range_attention_maps = self.adaptive_bins_layer(unet_out, generator)
         bin_edges = bin_edges_from_widths(bin_widths_normed, self.min_val, self.max_val)
         centers = bin_centers(bin_edges)
 
-        if self.fused_head and fused_head_supported(h, w, self.n_bins):
+        # the kernels take 128 channels, as JAX's model asks (cin == 128)
+        if (self.fused_head and range_attention_maps.shape[1] == 128
+                and fused_head_supported(h, w, self.n_bins)):
             conv = self.conv_out[0]
             pred = fused_bins_head(range_attention_maps, conv.weight, conv.bias, centers)
         else:

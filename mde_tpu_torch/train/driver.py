@@ -23,13 +23,24 @@ a stem widened by input cues keeps the file's RGB slice and its own cue
 slice; with `--image none` the stem stays random.
 
 Data parallelism (`--distributed` under `torchrun --nproc_per_node N -m
-mde_tpu_torch.train ...`, `parallel/`): each rank takes its share of the
-global batch (`shard_batch_size`, the loader's `(rank, world_size)`), the
-model runs under DistributedDataParallel (`train/state.py::wrap_ddp`) with
-BatchNorm and SILog over the global batch, so the step is the JAX package's
-global step; rank 0 names the run (its id and experiment directory go to
-every rank), writes the scalars and the checkpoints, and validates (eval
-mode has no collective, so its metrics are one process's).
+mde_tpu_torch.train ...`, `parallel/`): each data rank takes its share of
+the global batch (`shard_batch_size`, the loader's `(rank, world_size)` set
+to the data index and size), the model runs under DistributedDataParallel
+(`train/state.py::wrap_ddp`) with BatchNorm and SILog over the global
+batch, so the step is the JAX package's global step; rank 0 names the run
+(its id and experiment directory go to every rank) and writes the scalars
+and the checkpoints.
+
+Tensor parallelism (`--distributed --mesh_shape d,m` with d·m ranks, as
+`mde_tpu/train/driver.py:72, 117-120` builds its mesh and shards the
+state): the grid's m model ranks of a data index read the same batch, and
+the model is cut to each rank's slices (`models/tp.py::shard_model`) after
+`--pretrained_backbone`, before the optimizer, and `--resume` loads the
+gathered checkpoint into those slices. The forward then has collectives in
+eval mode too, so every rank validates, draws the figures' forward and
+saves (the checkpoint is gathered); rank 0 alone writes, and every rank
+takes rank 0's metrics for the best-checkpoint test. With m = 1 rank 0
+alone validates and saves (eval mode has no collective there).
 
 Qualitative figures (`utils/graphs.py`, rank 0), at the JAX driver's cadence
 (:173-193): `Train/QualSamples` when `step % 500 == 0`, after that step's
@@ -40,8 +51,8 @@ compute dtype, then puts it back in train mode: parameters, BN buffers, the
 optimizer and the dropout generator are left as they were. Each figure is a
 PNG in the experiment directory and a JSONL line (`SummaryLogger.add_figure`).
 
-Not in this slice: `--steps_per_dispatch` and `--mesh_shape` (tensor
-parallelism), which parse and change nothing.
+Not ported: `--steps_per_dispatch` (a TPU dispatch workaround), which
+parses and changes nothing.
 """
 
 import glob
@@ -58,7 +69,8 @@ from ..cues import InstanceEmbedder, SemanticsEmbedder
 from ..data import DepthDataLoader, DevicePrefetcher
 from ..data.prefetch import ARRAY_KEYS
 from ..models import build_model
-from ..parallel import (broadcast_object, destroy_distributed, maybe_init_distributed,
+from ..models.tp import shard_model
+from ..parallel import (broadcast_object, destroy_distributed, grid, maybe_init_distributed,
                         shard_batch_size)
 from ..utils import SummaryLogger, setup_exp_dir
 from ..utils.graphs import GraphBuilderNYUD2, visualize_semantics
@@ -172,16 +184,21 @@ def main_train(args, max_steps=None, interactive=True):
 
 def _train(args, device, rank, world_size, max_steps, interactive):
     lead = rank == 0
+    place = grid()
+    # with a model group the forward has collectives in eval mode too: every
+    # rank validates, draws the figures' forward and saves
+    every_rank = place.model > 1
     run_id = broadcast_object(make_run_id(args))  # rank 0 names the run
-    args.batch_size = shard_batch_size(args.bs, world_size,
+    args.batch_size = shard_batch_size(args.bs, place.data,
                                        getattr(args, "use_new_batching", False))
 
     torch.manual_seed(int(getattr(args, "seed", 42)))
-    model = apply_pretrained_backbone(build_model(args), args).to(device)
+    model = shard_model(apply_pretrained_backbone(build_model(args), args), place).to(device)
     sem_embedder = SemanticsEmbedder(args, device) if args.use_semantics else None
     inst_embedder = InstanceEmbedder(args, device) if args.use_instance_segmentation else None
 
-    train_loader = DepthDataLoader(args, "train", rank=rank, world_size=world_size)
+    train_loader = DepthDataLoader(args, "train", rank=place.data_index,
+                                   world_size=place.data)
     test_loader = DepthDataLoader(args, "online_eval")
     steps_per_epoch = len(train_loader)
     if steps_per_epoch == 0:
@@ -220,26 +237,33 @@ def _train(args, device, rank, world_size, max_steps, interactive):
 
     def figure(tag, batch):
         pred = figure_forward(state.model, batch)
+        if not lead:
+            return
         log_qual_figure(logger, graph_builder, tag, args, batch, pred, step)
 
     def bookkeep(metrics, batch, epoch):
         """Logging, figures, validation and checkpoints after one step (rank
-        0); True when max_steps is reached."""
+        0 writes; with a model group every rank runs the forwards and the
+        save); True when max_steps is reached."""
         nonlocal step, best_loss
         if lead and step % LOG_EVERY == 0:
             logger.add_scalar("Train/Loss", metrics["loss"].item(), step)
             logger.add_scalar("Train/SILog", metrics["silog"].item(), step)
             logger.add_scalar("Train/ChamferLoss", metrics["chamfer"].item(), step)
-        if lead and step % FIGURE_EVERY == 0:
+        if (lead or every_rank) and step % FIGURE_EVERY == 0:
             figure("Train/QualSamples", batch)
         step += 1
-        if lead and (step % args.validate_every == 0 or (max_steps and step >= max_steps)):
+        if (lead or every_rank) and (step % args.validate_every == 0
+                                     or (max_steps and step >= max_steps)):
             m, val_si = validate(args, eval_step, state.model,
                                  DevicePrefetcher(test_loader, device),
                                  max_batches=getattr(args, "max_val_batches", None))
-            logger.add_scalar("Test/SILog", val_si.get_value(), step)
-            for k, v in m.items():
-                logger.add_scalar(f"Metrics/{k}", v, step)
+            if every_rank:  # one decision for the best checkpoint's collective
+                m = broadcast_object(m)
+            if lead:
+                logger.add_scalar("Test/SILog", val_si.get_value(), step)
+                for k, v in m.items():
+                    logger.add_scalar(f"Metrics/{k}", v, step)
             # from the last train batch, as the JAX driver (:187-193)
             figure("Test/QualSamples", batch)
             save_checkpoint(state, epoch, f"{experiment_name}_{run_id}_latest.pt", root=exp_dir)

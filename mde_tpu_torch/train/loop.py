@@ -25,20 +25,31 @@ and the AdamW update with the scheduled lr and beta1.
   through them as through K forwards.
 * The dropout masks of step s (micro-batch i) come from a generator seeded
   with (args.seed, s, i), as the JAX step folds its rng per step; with
-  several ranks, (args.seed, s, i, rank).
+  several data ranks, (args.seed, s, i, data index). The model ranks of one
+  data index draw the same stream, so a replicated tensor gets the same
+  mask on each, and a split one its slice of one process's mask
+  (models/mvit.py).
 * Several ranks (`parallel/`, `TrainState.ddp`): the step gives the numbers
   of the JAX step on the global batch (`mde_tpu/kernels/sharded.py`'s
   semantics). BatchNorm's moments (models/norm.py) and SILog's count and
-  sums are summed over the ranks inside autograd, so every rank computes
-  the global SILog; the chamfer, a mean of per-image losses, runs on the
-  rank's shard, and DDP's gradient mean plays the part of
+  sums are summed over the data group inside autograd, so every rank
+  computes the global SILog; the chamfer, a mean of per-image losses, runs
+  on the rank's shard, and the gradient mean plays the part of
   `chamfer_1d_pallas_sharded`'s pmean. The scaling is exact: the backward of
-  a sum all-reduce sums the ranks' gradients, so rank r's gradient is
-  R x its share of d(SILog)/dθ plus its shard's d(chamfer_r)/dθ, and DDP's
-  mean over the R ranks is d(SILog + w mean_r chamfer_r)/dθ, the global
-  gradient. DDP syncs on the last micro-batch of `--accum_steps` only
-  (`no_sync` before it); the logged loss, SILog and chamfer are means over
-  the ranks.
+  a sum all-reduce sums the data ranks' gradients, so rank r's gradient is
+  d x its share of d(SILog)/dθ plus its shard's d(chamfer_r)/dθ, and the
+  mean over the d data ranks is d(SILog + w mean_r chamfer_r)/dθ, the
+  global gradient. DDP takes that mean for the replicated parameters (over
+  the whole world, whose m model ranks of a data index hold equal
+  gradients), the optimizer for the tensor-parallel slices (over their data
+  group, train/optim.py). DDP syncs on the last micro-batch of
+  `--accum_steps` only (`no_sync` before it); the logged loss, SILog and
+  chamfer are means over the data ranks.
+* Tensor parallelism (`--mesh_shape d,m`, models/tp.py): each model rank
+  runs the forward with its slices of the targeted layers and the model
+  group's collectives; every rank runs the bins head and the chamfer whole
+  on its data shard, as JAX's `fused_bins_head_sharded` and
+  `chamfer_1d_pallas_sharded` map over 'data' only.
 
 The eval step runs on the device under `torch.inference_mode()`: the
 forward with no TTA, in the training's compute dtype (bf16 autocast at
@@ -61,7 +72,7 @@ from ..kernels.chamfer import chamfer_1d
 from ..ops.losses import bins_chamfer_loss, silog_loss
 from ..ops.metrics import METRIC_NAMES, compute_errors_masked, eval_mask
 from ..ops.resize import resize_bilinear_align_corners
-from ..parallel import all_reduce_mean, world
+from ..parallel import all_reduce_mean, grid
 from ..utils.running_average import RunningAverage, RunningAverageDict
 from .state import TrainState
 
@@ -121,7 +132,7 @@ def make_train_step(args, sem_embedder=None, inst_embedder=None):
     def train_step(state: TrainState, batch):
         state.model.train()
         net = state.ddp if state.ddp is not None else state.model
-        rank, world_size = world()
+        place = grid()
         image = batch["image"]
         generator = torch.Generator(device=image.device)
         state.optimizer.zero_grad()
@@ -132,8 +143,8 @@ def make_train_step(args, sem_embedder=None, inst_embedder=None):
         sums = torch.zeros(3, device=image.device)
         for i in range(accum):
             micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            generator.manual_seed(_dropout_seed(seed, state.step, i,
-                                                rank if world_size > 1 else None))
+            generator.manual_seed(_dropout_seed(
+                seed, state.step, i, place.data_index if place.data > 1 else None))
             sync = state.ddp is None or i == accum - 1
             with contextlib.nullcontext() if sync else state.ddp.no_sync():
                 loss, l_dense, l_chamfer = loss_fn(net, micro, generator)

@@ -13,12 +13,21 @@ of `mde_tpu/train/optim.py` (reference train.py:345-368, 427).
   actually runs; `--same_lr` turns the factor off), which scales their whole
   AdamW update including the decay, as the JAX package's update-scale mask
   does.
+* Tensor parallelism (`model.tp_layout`, models/tp.py): a split parameter
+  is this rank's slice. Its gradient is averaged over its data group here
+  (DDP leaves it out: train/state.py), and the clip's global norm adds the
+  squares of the slices' gradients over the model group to those of the
+  replicated gradients, counted once. AdamW is elementwise, so each rank
+  updates its slices as one process updates the whole tensors.
 """
 
 import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import model_group, plain_name, sync_group
 
 _MAX_GRAD_NORM = 0.1  # reference train.py:427
 
@@ -74,11 +83,15 @@ class OneCycleAdamW:
         factor = 1.0 if args.same_lr else float(args.encoder_lr_factor or 1.0)
         encoder, rest = [], []
         for name, p in model.named_parameters():
-            (encoder if name.startswith("encoder.") else rest).append(p)
-        groups = [{"params": rest, "lr_scale": 1.0}]
+            (encoder if name.startswith("encoder.") else rest).append((plain_name(name), p))
+        groups = [{"params": [p for _, p in rest], "lr_scale": 1.0}]
         if encoder:
-            groups.append({"params": encoder, "lr_scale": factor})
-        self.params = rest + encoder
+            groups.append({"params": [p for _, p in encoder], "lr_scale": factor})
+        # one-process names, in the order of the optimizer's state indices
+        self.names = [name for name, _ in rest + encoder]
+        self.params = [p for _, p in rest + encoder]
+        layout = getattr(model, "tp_layout", None) or {}
+        self.split = [name in layout for name in self.names]
         self.optimizer = torch.optim.AdamW(groups, lr=self.lr(0), betas=(self.beta1(0), 0.999),
                                            eps=1e-8, weight_decay=args.wd)
 
@@ -90,12 +103,34 @@ class OneCycleAdamW:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = torch.nn.utils.clip_grad_norm_(self.params, _MAX_GRAD_NORM)
+        if any(self.split):
+            norm = self._clip_split()
+        else:
+            norm = torch.nn.utils.clip_grad_norm_(self.params, _MAX_GRAD_NORM)
         lr, beta1 = self.lr(step), self.beta1(step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
             group["betas"] = (beta1, 0.999)
         self.optimizer.step()
+        return norm
+
+    def _clip_split(self) -> torch.Tensor:
+        """Under tensor parallelism: the slices' gradients averaged over
+        their data group, then clipped with `clip_grad_norm_`'s rule to the
+        global norm of the whole tensors; returns that norm."""
+        split = [p.grad for p, s in zip(self.params, self.split) if s]
+        if sync_group() is not None:
+            for g in split:
+                dist.all_reduce(g, group=sync_group())
+            torch._foreach_div_(split, dist.get_world_size(sync_group()))
+        grads = [p.grad for p in self.params]
+        squares = torch.stack(torch._foreach_norm(grads)) ** 2
+        mask = torch.tensor(self.split, device=squares.device)
+        split_sum = torch.where(mask, squares, 0.0).sum()
+        if model_group() is not None:
+            dist.all_reduce(split_sum, group=model_group())
+        norm = (split_sum + torch.where(mask, 0.0, squares).sum()).sqrt()
+        torch._foreach_mul_(grads, torch.clamp(_MAX_GRAD_NORM / (norm + 1e-6), max=1.0))
         return norm
 
     def zero_grad(self):

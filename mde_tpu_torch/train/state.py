@@ -34,11 +34,21 @@ def wrap_ddp(state: TrainState, device_ids=None) -> TrainState:
     its two parameters out, and need not walk the autograd graph each step
     to find them; their gradient stays None on every rank and the optimizer
     gives them a zero one, as optax does. Any other parameter the loss
-    missed would make DDP raise at the next step."""
+    missed would make DDP raise at the next step.
+
+    Under tensor parallelism (`model.tp_layout`, models/tp.py) DDP averages
+    the replicated parameters' gradients over the whole world: the m model
+    ranks of a data index hold the same gradient, so that is the data mean,
+    and it keeps the replicas equal bit for bit. The split parameters are
+    left out too (DDP would average one rank's slice with another's); the
+    optimizer averages them over their data group (train/optim.py)."""
     from torch.nn.parallel import DistributedDataParallel
-    unused = [f"{name}.{p}" for name, module in state.model.named_modules()
-              if name.endswith("encoder.original_model.bn2") for p in ("weight", "bias")]
-    DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(state.model, unused)
+    from ..parallel import plain_name
+    layout = getattr(state.model, "tp_layout", None) or {}
+    ignore = [name for name, _ in state.model.named_parameters()
+              if plain_name(name) in layout
+              or plain_name(name).startswith("encoder.original_model.bn2.")]
+    DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(state.model, ignore)
     state.ddp = DistributedDataParallel(state.model, device_ids=device_ids,
                                         broadcast_buffers=False)
     return state

@@ -23,6 +23,7 @@
 """
 
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import flax.linen
 import jax
@@ -283,11 +284,9 @@ def _embedders(args):
     return SemanticsEmbedder(args, CPU), InstanceEmbedder(args, CPU)
 
 
-@pytest.fixture(scope="module")
-def f64_cue_grads(step_inputs):
+def _f64_cue_grads(params, stats, raw):
     """The port's gradients of the same loss in float64 (plain head and
     chamfer; `.float()` leaves float64 tensors as they are)."""
-    params, stats, raw = step_inputs
     args = _train_args(use_fused_head=False, use_pallas_chamfer=False)
     model = _port_cue_model(params, stats, args).double().train()
     to_float = torch.Tensor.float
@@ -310,7 +309,21 @@ def f64_cue_grads(step_inputs):
 
 
 @pytest.fixture(scope="module")
-def cue_step(step_inputs):
+def f64_cue_step(step_inputs):
+    """`_f64_cue_grads` in a thread of its own beside JAX's compile and the
+    port's float32 step of `cue_step` (torch and XLA leave the interpreter
+    lock while they compute); a future."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        yield pool.submit(_f64_cue_grads, *step_inputs)
+
+
+@pytest.fixture(scope="module")
+def f64_cue_grads(f64_cue_step):
+    return f64_cue_step.result()
+
+
+@pytest.fixture(scope="module")
+def cue_step(step_inputs, f64_cue_step):
     params, stats, raw = step_inputs
     args = _train_args()
     mp = pytest.MonkeyPatch()

@@ -30,6 +30,7 @@ input that reaches every stage. Weights come from `seeded_variables`.
 
 import copy
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -102,7 +103,17 @@ def _port_step(inputs, **kw):
 
 
 @pytest.fixture(scope="module")
-def plain_step(inputs):
+def background(inputs):
+    """JAX's remat step, then the port's float64 step, in a thread of their
+    own beside the port's float32 steps that the fixtures and tests below
+    run meanwhile (torch and XLA leave the interpreter lock while they
+    compute): their futures."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        yield pool.submit(_jax_remat_step, inputs), pool.submit(_f64_grads, inputs)
+
+
+@pytest.fixture(scope="module")
+def plain_step(inputs, background):
     return _port_step(inputs)
 
 
@@ -163,7 +174,11 @@ def test_remat_moves_bn_buffers_once(plain_step, remat_step):
 
 
 @pytest.fixture(scope="module")
-def jax_remat_step(inputs):
+def jax_remat_step(background):
+    return background[0].result()
+
+
+def _jax_remat_step(inputs):
     import jax
     import jax.numpy as jnp
     import optax
@@ -253,7 +268,11 @@ def test_accum_steps_matches_manual_mean_gradient(inputs):
 
 
 @pytest.fixture(scope="module")
-def f64_grads(inputs):
+def f64_grads(background):
+    return background[1].result()
+
+
+def _f64_grads(inputs):
     params, stats, image, depth = inputs
     args = _args()
     model = build_model(args).double().train()

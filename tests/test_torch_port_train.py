@@ -66,6 +66,7 @@ falls (0.0050 to 0.0037), so the port keeps autocast's BatchNorm.
 """
 
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import flax.linen
 import jax
@@ -294,13 +295,26 @@ def _f64_step(params, stats, image, depth):
 
 
 @pytest.fixture(scope="module")
-def f64_grads(step_inputs):
-    """The port's float64 gradients on the step's weights and batch."""
-    return _f64_step(*step_inputs)[1]
+def f64_steps(step_inputs):
+    """The port's two float64 steps, on the step's weights and on the
+    weights with their corners lifted (`bf16_steps`), in a thread of their
+    own beside the JAX compiles and the float32 and bf16 steps that the
+    fixtures below run meanwhile (torch and XLA leave the interpreter lock
+    while they compute): futures of (loss, gradients)."""
+    params, stats, image, depth = step_inputs
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        yield (pool.submit(_f64_step, params, stats, image, depth),
+               pool.submit(_f64_step, _lift_corners(params), stats, image, depth))
 
 
 @pytest.fixture(scope="module")
-def one_step(step_inputs):
+def f64_grads(f64_steps):
+    """The port's float64 gradients on the step's weights and batch."""
+    return f64_steps[0].result()[1]
+
+
+@pytest.fixture(scope="module")
+def one_step(step_inputs, f64_steps):
     params, stats, image, depth = step_inputs
     args = _args()
 
@@ -461,7 +475,7 @@ def _lift_corners(params):
 
 
 @pytest.fixture(scope="module")
-def bf16_steps(step_inputs):
+def bf16_steps(step_inputs, f64_steps):
     """The port's step under bf16 autocast and JAX's `build_model(dtype=
     bfloat16)` step, on the step's batch and the weights with their corners
     lifted (`_lift_corners`), with the port's float32 loss and float64 loss
@@ -493,7 +507,7 @@ def bf16_steps(step_inputs):
              for k, p in port.named_parameters()}
     with torch.no_grad():
         f32_loss, _, _ = make_loss_fn(_args())(_port_model(params, stats, True).train(), batch)
-    f64_loss, f64 = _f64_step(params, stats, image, depth)
+    f64_loss, f64 = f64_steps[1].result()
     return dict(loss=loss.item(), grads=grads, jax_loss=jax_loss, jax_grads=jax_grads,
                 f32_loss=f32_loss.item(), f64_loss=f64_loss, f64_grads=f64)
 
