@@ -31,7 +31,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      1,024 bins, where W goes through shared memory in chunks; the chamfer
      reductions at (16 images of 416x544 pixels, 256 bins) on uniform noise
      and on a smooth millimetre-quantized map, each timed with its share of
-     the bound, and the loss and gradient on the noise; and, as yardsticks of the card's rates, two cuBLAS products of
+     the bound, and the loss and gradient on the noise; chamfer_wide_kernel
+     (above 256 bins) at 512, 1,024 and 2,048 bins on the same two maps,
+     min, nearest depth, count and y_min equal to the plain version's, the
+     depth sum at rtol 1e-5, each timed with its share of the bound; and,
+     as yardsticks of the card's rates, two cuBLAS products of
      the head's sizes (bf16 at the training shape, float32 with TF32 off at
      the serving shape), which the port never calls
   4. the serving path: InferenceHelper (EfficientNet-B1, 256 bins, seeded
@@ -45,7 +49,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      once and the two tensor-core head backward kernels once each
   6. one step at batch 2 through the kernels against the same step through
      the unfused head and the plain chamfer, in float32 (the CUDA-core head
-     kernels) and under bf16 autocast (the tensor-core ones)
+     kernels) and under bf16 autocast (the tensor-core ones); then the
+     flagship bf16 step at 512 bins: its first loss against the plain
+     chamfer's on the same weights and batch (rtol 2e-2), 2 warm-up and 4
+     timed steps, each launching the tensor-core head forward once, its
+     backward kernels once each and chamfer_wide_kernel once
   7. the cue configurations of the paper's params files, with seeded random
      weights: (A) glove-25d semantics + ade20k_swin_human_sizes instances at
      the input, a 73-channel stem; (B) glove-25d-inst-areas + coco before the
@@ -132,8 +140,6 @@ Phases, each of which ends the run with a non-zero exit if it fails:
          step without dropout, 8 images a data rank, against one process on
          the 16; with two cards or more, 1,m over NCCL on m = min(4, cards)
          cards (bf16 steps and the float32 check)
-     and phase 3 also times chamfer_wide_kernel (512 bins, on no main path)
-     against its plain version and its bound.
  10. offline cue generation, with seeded weights at full width (no checkpoint
      is in the repo), on a tree of 8 copies of the NYU frame with depth PNGs:
      (a) `python -m mde_tpu_torch.offline.generate_semantics` in process:
@@ -203,7 +209,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      serving, training, the eval and cue training runs, the train CLI, the
      B5 evaluation, both DDP ranks, the DDP driver run, the remat steps,
      the tensor-parallel ranks' steps and driver run, phase 10's cue
-     training and phase 12's request;
+     training and phase 12's request; chamfer_wide_kernel's from phase 6's
+     512-bin steps, its row's times from phase 3 at 512 bins on the noise;
      the float32 head backward, which no main path runs, from the float32
      step checks), then the result line.
 
@@ -272,9 +279,11 @@ STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # kernels (the pixel and the weight kernel). bf16 features take the
 # tensor-core head kernels, float32 features the CUDA-core ones.
 STEP_LAUNCHES = {"bins_head_fwd": 0, "bins_head_bwd": 0, "bins_head_tc_fwd": 1,
-                 "bins_head_tc_bwd": 2, "chamfer": 1}
+                 "bins_head_tc_bwd": 2, "chamfer": 1, "chamfer_wide": 0}
 F32_STEP_LAUNCHES = {"bins_head_fwd": 1, "bins_head_bwd": 2, "bins_head_tc_fwd": 0,
-                     "bins_head_tc_bwd": 0, "chamfer": 1}
+                     "bins_head_tc_bwd": 0, "chamfer": 1, "chamfer_wide": 0}
+# above 256 bins the chamfer is chamfer_wide_kernel (the 512-bin step)
+WIDE_STEP_LAUNCHES = dict(STEP_LAUNCHES, chamfer=0, chamfer_wide=1)
 # the head's products at the flagship shape: (16 x 208 x 272 pixels, 128)
 # by (128, 256 bins)
 HEAD_PIXELS = TRAIN_BATCH * (TRAIN_HW[0] // 2) * (TRAIN_HW[1] // 2)
@@ -526,12 +535,14 @@ def smooth_depth(b, h, w, gen):
     return depth[:, None]
 
 
-def check_chamfer_reductions(chamfer, centers, depth, label):
+def check_chamfer_reductions(chamfer, centers, depth, label, exact=False):
     """The reductions kernel against its plain version on one depth map;
     returns its stats. The function's work: per (bin, valid pixel) pair one
     squared distance (a subtract and a multiply), then about 4 compares and
     selects for the per-pixel min with its tie count and the per-bin min
-    with its depth."""
+    with its depth. Outputs at rtol 1e-5, atol 1e-6, or where `exact` equal
+    but for the depth sum (the same squared distances picked by the same
+    rule; counts of whole pixels)."""
     flat = depth.reshape(depth.shape[0], -1)
     want = chamfer.chamfer_reductions_reference(centers, flat)
     got = chamfer.chamfer_reductions(centers, flat)
@@ -539,7 +550,8 @@ def check_chamfer_reductions(chamfer, centers, depth, label):
     abs_err = 0.0
     for name, g, r in zip(("min", "nearest", "count", "depth_sum", "y_min"), got, want):
         abs_err = max(abs_err, (g - r).abs().max().item())
-        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6, msg=f"{label} {name}")
+        tol = (0.0, 0.0) if exact and name != "depth_sum" else (1e-5, 1e-6)
+        torch.testing.assert_close(g, r, rtol=tol[0], atol=tol[1], msg=f"{label} {name}")
     ms = cuda_ms(lambda: chamfer.chamfer_reductions(centers, flat), iters=10)
     plain_ms = cuda_ms(lambda: chamfer.chamfer_reductions_reference(centers, flat),
                        iters=3, warmup=1)
@@ -548,8 +560,9 @@ def check_chamfer_reductions(chamfer, centers, depth, label):
     nbytes = 2 * flat.numel() * 4 + centers.numel() * 4
     least = bound(ops, F32_OPS, nbytes)
     print(f"chamfer reductions, {label} ({flat.shape[0]} x {TRAIN_HW[0]}x{TRAIN_HW[1]} pixels, "
-          f"{valid} valid, {centers.shape[1]} bins): max_abs_err {abs_err:.3e} (rtol 1e-5, "
-          f"atol 1e-6); kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+          f"{valid} valid, {centers.shape[1]} bins): max_abs_err {abs_err:.3e} "
+          f"({'exact but the depth sum at rtol 1e-5' if exact else 'rtol 1e-5, atol 1e-6'}); "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
           f"{least['bound_ms']:.4f} ms ({least['bound_by']}), "
           f"{100 * least['bound_ms'] / ms:.1f}% of the bound")
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **least}
@@ -780,14 +793,15 @@ def flagship_args(**kw):
 def reset_counts():
     from mde_tpu_torch.kernels import bins_head, chamfer
     bins_head.LAUNCHES = bins_head.BWD_LAUNCHES = chamfer.LAUNCHES = 0
-    bins_head.TC_LAUNCHES = bins_head.TC_BWD_LAUNCHES = 0
+    bins_head.TC_LAUNCHES = bins_head.TC_BWD_LAUNCHES = chamfer.WIDE_LAUNCHES = 0
 
 
 def read_counts():
     from mde_tpu_torch.kernels import bins_head, chamfer
     return {"bins_head_fwd": bins_head.LAUNCHES, "bins_head_bwd": bins_head.BWD_LAUNCHES,
             "bins_head_tc_fwd": bins_head.TC_LAUNCHES,
-            "bins_head_tc_bwd": bins_head.TC_BWD_LAUNCHES, "chamfer": chamfer.LAUNCHES}
+            "bins_head_tc_bwd": bins_head.TC_BWD_LAUNCHES, "chamfer": chamfer.LAUNCHES,
+            "chamfer_wide": chamfer.WIDE_LAUNCHES}
 
 
 def synthetic_cues(n, hw, inst_mode, gen):
@@ -1506,7 +1520,8 @@ def train_cli(root, profile_dir, synthetic_ms):
     # Test/QualSamples at both validations)
     expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
                 "bins_head_tc_fwd": CLI_STEPS + 2 * CLI_EVAL_FRAMES + 3,
-                "bins_head_tc_bwd": 2 * CLI_STEPS, "chamfer": CLI_STEPS}
+                "bins_head_tc_bwd": 2 * CLI_STEPS, "chamfer": CLI_STEPS,
+                "chamfer_wide": 0}
     print(f"train CLI: main_train(max_steps={CLI_STEPS}) in {run_s:.2f} s, {state.step} "
           f"steps; launches {counts}, expected {expected}")
     check(state.step == CLI_STEPS, "the driver did not take its steps")
@@ -1576,7 +1591,7 @@ def train_cli(root, profile_dir, synthetic_ms):
     n = CLI_RESUME_STEPS - CLI_STEPS
     expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
                 "bins_head_tc_fwd": n + CLI_EVAL_FRAMES + 1, "bins_head_tc_bwd": 2 * n,
-                "chamfer": n}
+                "chamfer": n, "chamfer_wide": 0}
     lr = state.optimizer.optimizer.param_groups[0]["lr"]
     want_lr = onecycle_lr_schedule(args.lr, CLI_EPOCHS * CLI_STEPS_PER_EPOCH,
                                    div_factor=args.div_factor,
@@ -1607,18 +1622,89 @@ DDP_RANKS, DDP_WARMUP, DDP_STEPS = 2, 2, 6
 # float32, of the largest gradient value (tests/test_torch_port_ddp.py GRAD_TOL)
 DDP_GRAD_TOL = 2e-2
 REMAT_LOSS_TOL = 1e-3  # relative: the same forward, bf16 autocast
-WIDE_BINS = 512  # above the 256 bins chamfer_kernel keeps in registers
+WIDE_BINS = (512, 1024, 2048)  # above the 256 bins chamfer_kernel keeps in registers
+WIDE_STEP_BINS, WIDE_WARMUP, WIDE_STEPS = 512, 2, 4
 
 
 def check_chamfer_wide(chamfer):
     """chamfer_wide_kernel, which runs above 256 bins (no params file does),
-    against its plain version on uniform noise at the flagship's pixels,
-    with its own generator so that later phases draw what they drew."""
+    against its plain version at the flagship's pixels, at each of
+    WIDE_BINS on uniform noise and on the smooth millimetre map: min,
+    nearest depth, count and y_min equal, the depth sum at rtol 1e-5. Its
+    own generator, so that later phases draw what they drew; returns the
+    stats of each (bins, map)."""
     gen = torch.Generator().manual_seed(SEED + 2)
-    _, centers = centers_from(torch.rand((TRAIN_BATCH, WIDE_BINS), generator=gen))
-    depth = 0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)
-    return check_chamfer_reductions(chamfer, centers.cuda(), depth.cuda(),
-                                    f"noise, {WIDE_BINS} bins, chamfer_wide_kernel")
+    depth = (0.05 + 9.9 * torch.rand((TRAIN_BATCH, 1, *TRAIN_HW), generator=gen)).cuda()
+    smooth = smooth_depth(TRAIN_BATCH, *TRAIN_HW, torch.Generator().manual_seed(SEED + 1))
+    smooth = smooth.cuda()
+    stats = {}
+    for p in WIDE_BINS:
+        _, centers = centers_from(torch.rand((TRAIN_BATCH, p), generator=gen))
+        centers = centers.cuda()
+        for name, d in (("noise", depth), ("smooth mm map", smooth)):
+            stats[p, name] = check_chamfer_reductions(
+                chamfer, centers, d, f"{name}, chamfer_wide_kernel", exact=True)
+        torch.cuda.empty_cache()
+    return stats
+
+
+def train_wide():
+    """The flagship bf16 step at WIDE_STEP_BINS bins, where the chamfer is
+    chamfer_wide_kernel: the first step's loss against the same model's
+    with the plain chamfer (rtol STEP_TOL), then WIDE_WARMUP + WIDE_STEPS
+    steps, each launching the tensor-core head and the wide chamfer
+    (WIDE_STEP_LAUNCHES). Its own generator; returns the timed steps'
+    launches."""
+    from mde_tpu_torch.train import create_train_state, make_loss_fn, make_train_step
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    args = flagship_args(n_bins=WIDE_STEP_BINS)
+    model = seeded_model(args, gen).train()
+    batch = train_batch(args, gen, TRAIN_BATCH, TRAIN_HW)
+    losses = {}
+    with torch.no_grad():
+        for kernel in (True, False):
+            loss_fn = make_loss_fn(flagship_args(n_bins=WIDE_STEP_BINS,
+                                                 use_pallas_chamfer=kernel))
+            loss, _, l_chamfer = loss_fn(model, batch,
+                                         torch.Generator(device="cuda").manual_seed(SEED))
+            losses[kernel] = (loss.item(), l_chamfer.item())
+    tol = STEP_TOL[torch.bfloat16]
+    print(f"wide step ({WIDE_STEP_BINS} bins): first loss {losses[True][0]:.7f} (chamfer "
+          f"{losses[True][1]:.7e}) against the plain chamfer's {losses[False][0]:.7f} "
+          f"({losses[False][1]:.7e}); relative difference "
+          f"{abs(losses[True][0] - losses[False][0]) / abs(losses[False][0]):.3e} (rtol {tol})")
+    for kernel_v, plain_v in zip(losses[True], losses[False]):
+        check(abs(kernel_v - plain_v) <= tol * abs(plain_v),
+              f"wide step: loss {losses[True]} against the plain chamfer's {losses[False]}")
+
+    state = create_train_state(model, args, steps_per_epoch=2693)
+    step = make_train_step(args)
+    for _ in range(WIDE_WARMUP):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for i in range(WIDE_STEPS):
+        counts = read_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: v - counts[k] for k, v in read_counts().items()}
+        check(all(np.isfinite(v.item()) for v in m.values()), f"wide step {i}: not finite")
+        check(per_step == WIDE_STEP_LAUNCHES,
+              f"wide step {i}: launches {per_step}, expected {WIDE_STEP_LAUNCHES}")
+    launches = read_counts()
+    print(f"wide step ({WIDE_STEP_BINS} bins): {WIDE_STEPS} steps after {WIDE_WARMUP} warm-up, "
+          f"batch {TRAIN_BATCH} of {TRAIN_HW[0]}x{TRAIN_HW[1]}, bf16 autocast: median step "
+          f"{statistics.median(step_ms):.3f} ms (all: "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)}), last loss {m['loss'].item():.6f}, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, launches "
+          f"{launches}")
+    del state, model
+    return launches
 
 
 def eval_cli(root, gen):
@@ -1942,7 +2028,8 @@ def nccl_main_train(root):
                 os.environ[k] = v
     # bf16: 2 steps, the validation's frames and 2 figures (steps 0 and 2)
     expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
-                "bins_head_tc_fwd": 2 + CLI_EVAL_FRAMES + 2, "bins_head_tc_bwd": 4, "chamfer": 2}
+                "bins_head_tc_fwd": 2 + CLI_EVAL_FRAMES + 2, "bins_head_tc_bwd": 4, "chamfer": 2,
+                "chamfer_wide": 0}
     print(f"DDP through main_train: --distributed, WORLD_SIZE 1, backend {seen.get('backend')}, "
           f"wrapper {type(state.ddp).__name__}: {state.step} steps and a validation of "
           f"{CLI_EVAL_FRAMES} frames in {run_s:.2f} s; launches {counts}, expected {expected}")
@@ -2329,7 +2416,8 @@ def check_tp_driver(ranks, state_dict):
     outs = [r["driver"] for r in ranks]
     # bf16: 2 steps, the validation's frames and 2 figures (steps 0 and 2)
     expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
-                "bins_head_tc_fwd": 2 + CLI_EVAL_FRAMES + 2, "bins_head_tc_bwd": 4, "chamfer": 2}
+                "bins_head_tc_fwd": 2 + CLI_EVAL_FRAMES + 2, "bins_head_tc_bwd": 4, "chamfer": 2,
+                "chamfer_wide": 0}
     for r, out in enumerate(outs):
         check(out["step"] == 2 and out["launches"] == expected,
               f"TP main_train rank {r}: step {out['step']}, launches {out['launches']}")
@@ -2823,7 +2911,7 @@ def offline_train(root, tree, card):
     # columns (steps 0 and 2)
     expected = {"bins_head_fwd": 0, "bins_head_bwd": 0,
                 "bins_head_tc_fwd": 2 + OFFLINE_EVAL_FRAMES + 2, "bins_head_tc_bwd": 4,
-                "chamfer": 2}
+                "chamfer": 2, "chamfer_wide": 0}
     print(f"offline -> training [{card}]: {OFFLINE_PARAMS_FILE} --bs 2 on the generated side "
           f"files: {state.step} steps, losses {seen['loss']}, first batch {found}; launches "
           f"{counts}, expected {expected}")
@@ -3639,6 +3727,8 @@ def main(argv):
     torch.cuda.empty_cache()
     step_against_plain(state_dict, gen, torch.bfloat16)
     torch.cuda.empty_cache()
+    add(train_wide())
+    torch.cuda.empty_cache()
 
     check_embedders(gen)
     eval_ms = {}
@@ -3678,8 +3768,9 @@ def main(argv):
         add(offline(root, card))
         offline_training(root, card, args.profile)
         add(semseg_zoo_and_demo(root, gen, card))
-    print(f"chamfer_wide_kernel ({WIDE_BINS} bins, on no main path: every params file has 256 "
-          f"bins): " + json.dumps(wide))
+    for (p, name), st in wide.items():
+        print(f"chamfer_wide_kernel ({p} bins, {name}; on no params file's path: every one "
+              f"has 256 bins): " + json.dumps(st))
     print(f"launches over the main paths (the float32 head backward from the step "
           f"checks): {launches}")
     print(f"chip_smoke: the whole run in {time.perf_counter() - run_t0:.1f} s [{card}]")
@@ -3693,7 +3784,9 @@ def main(argv):
              fwd[torch.bfloat16]),
             ("bins_head_tc_bwd", "mde_tpu_torch/csrc/bins_head_tc.cu", f"{head}:84",
              bwd[torch.bfloat16]),
-            ("chamfer", "mde_tpu_torch/csrc/chamfer.cu", "mde_tpu/kernels/chamfer.py:48", cham)]
+            ("chamfer", "mde_tpu_torch/csrc/chamfer.cu", "mde_tpu/kernels/chamfer.py:48", cham),
+            ("chamfer_wide", "mde_tpu_torch/csrc/chamfer.cu", "mde_tpu/kernels/chamfer.py:48",
+             wide[WIDE_STEP_BINS, "noise"])]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],

@@ -5,11 +5,13 @@
 for CUDA tensors; it replaces the Pallas TPU kernel `_chamfer_kernel`. For
 CPU tensors it runs `chamfer_reductions_reference`, the plain PyTorch version
 with the same outputs. There is no fallback between the two: a CUDA tensor the
-kernel cannot take raises. Up to 256 bins the kernel keeps each lane's bins in
-registers (4 or 8 a lane) and forms each (bin, pixel) distance once for
-both reductions; from 257 to `_MAX_BINS` bins it runs the first port's
-kernel, which forms each distance twice. Both write per-tile partials
-(`mde_chamfer_tile_pixels(p)` pixels a tile), which `_launch` folds.
+kernel cannot take raises. Up to 256 bins `chamfer_kernel` keeps each lane's
+bins in registers (4 or 8 a lane) and forms each (bin, pixel) distance once
+for both reductions; from 257 to `_MAX_BINS` bins `chamfer_wide_kernel` walks
+the same way over groups of 256 bins, each distance formed once, and names
+each pixel's bin after the last group. Both write per-tile partials
+(`mde_chamfer_tile_pixels(p)` pixels a tile), which `_launch` folds; each
+counts its launches (`LAUNCHES`, `WIDE_LAUNCHES`).
 
 `ChamferFromCenters` is an autograd.Function over those reductions: its
 forward forms the loss (`_chamfer_fwd`, chamfer.py:171-186) and its backward
@@ -33,12 +35,15 @@ from . import build
 
 _BIG = 3.4e38  # "no valid pixel", as in mde_tpu/kernels/chamfer.py
 _SOURCE = "chamfer.cu"
-_MAX_BINS = 2048  # above 256 bins the kernel stages the centres, counts and depth
-                  # sums in shared memory beside a 4,096-pixel tile: 40 KB at 2,048
+_REGISTER_BINS = 256  # up to here chamfer_kernel, above it chamfer_wide_kernel
+_MAX_BINS = 2048  # the wide kernel keeps four floats a bin in shared memory beside
+                  # 8 bytes a pixel of its sub-tile: 74 KB a block at 2,048 bins
 _LIB = None
 
-# Kernel launches since the last reset; only the CUDA path adds to it.
+# Kernel launches since the last reset, chamfer_kernel's and
+# chamfer_wide_kernel's; only the CUDA path adds to them.
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 
 def chamfer_reductions_reference(centers: torch.Tensor, depth: torch.Tensor,
@@ -113,7 +118,7 @@ def library() -> ctypes.CDLL:
 
 
 def _launch(centers, depth, valid_threshold):
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     lib = library()
     n, p = centers.shape
     m = depth.shape[1]
@@ -129,7 +134,10 @@ def _launch(centers, depth, valid_threshold):
     if err != 0:
         raise RuntimeError("chamfer kernel launch failed: "
                            + lib.mde_cuda_error_string(err).decode())
-    LAUNCHES += 1
+    if p > _REGISTER_BINS:
+        WIDE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     part_min, part_near, part_cnt, part_sumd = parts
     # fold the tiles: the smallest distance wins, then the lowest tile
     first = part_min.argmin(dim=1, keepdim=True)                    # (N, 1, P)

@@ -331,29 +331,16 @@ def _assert_reductions_match_plain(centers, flat, exact=False):
     """The kernel's five outputs against the plain version's: exact where
     `exact` (all but the depth sum), else at rtol 1e-5, atol 1e-6."""
     want = chamfer.chamfer_reductions_reference(centers.cpu(), flat.cpu())
-    before = chamfer.LAUNCHES
+    wide = centers.shape[1] > 256  # chamfer_wide_kernel, which counts apart
+    before = (chamfer.LAUNCHES, chamfer.WIDE_LAUNCHES)
     got = chamfer.chamfer_reductions(centers, flat)
     torch.cuda.synchronize()
-    assert chamfer.LAUNCHES == before + 1
+    assert (chamfer.LAUNCHES, chamfer.WIDE_LAUNCHES) == (before[0] + (not wide),
+                                                         before[1] + wide)
     for name, g, r in zip(("min", "nearest", "count", "depth_sum", "y_min"), got, want):
         tol = (0.0, 0.0) if exact and name != "depth_sum" else (1e-5, 1e-6)
         torch.testing.assert_close(g.cpu(), r, rtol=tol[0], atol=tol[1], msg=name)
     return [g.cpu() for g in got]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,hw,p", [(2, (24, 32), 16), (3, (33, 49), 256),
-                                    (2, (416, 544), 256), (1, (7, 9), 256),
-                                    (2, (24, 32), 1), (3, (33, 49), 33),
-                                    (2, (64, 80), 257), (1, (24, 40), 2048)])
-def test_chamfer_kernel_reductions_match_plain(cuda, b, hw, p):
-    """The five outputs, on tie-free random depths; ragged pixel counts
-    (1617, 63) and more than one tile (226,304 pixels) included; 1, 16 and
-    33 bins leave lanes and bins of a lane padded; 257 (two tiles of 5,120
-    pixels) and 2,048 bins take the kernel for more than 256 bins."""
-    edges, depth = _chamfer_inputs(cuda, b, hw, p)
-    centers = 0.5 * (edges[:, 1:] + edges[:, :-1])
-    _assert_reductions_match_plain(centers, depth.reshape(b, -1))
 
 
 def smooth_depth(b, h, w, seed):
@@ -367,6 +354,57 @@ def smooth_depth(b, h, w, seed):
     depth = torch.round(1000 * (0.5 + 9.0 * (a * x + (1 - a) * y))) / 1000
     depth[:, h // 4:h // 4 + 64, w // 3:w // 3 + 128] = 0.0
     return depth[:, None]
+
+
+def _cross_group_ties(b, hw, p):
+    """Centres 1 + k/2 in bin order, so that bins 255 and 256 (the last of
+    the first group of 256 and the first of the next) are neighbours, and
+    depths on the 1/4 grid: every pixel lies on a centre or halfway between
+    two (count 1/2 to each), and the first pixel of each image halfway
+    between bins 255 and 256; 10 % invalid."""
+    gen = torch.Generator().manual_seed(17)
+    centers = (1 + 0.5 * torch.arange(p).float())[None].repeat(b, 1)
+    m = hw[0] * hw[1]
+    grid = 1 + 0.25 * torch.randint(0, 2 * p - 1, (b, m), generator=gen).float()
+    depth = torch.where(torch.rand((b, m), generator=gen) < 0.1, 0.0, grid)
+    depth[:, 0] = 0.5 * (centers[0, 255] + centers[0, 256])
+    return centers, depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,p,kind", [(2, (24, 32), 16, "noise"), (3, (33, 49), 256, "noise"),
+                                         (2, (416, 544), 256, "noise"), (1, (7, 9), 256, "noise"),
+                                         (2, (24, 32), 1, "noise"), (3, (33, 49), 33, "noise"),
+                                         (2, (64, 80), 257, "noise"),
+                                         (1, (24, 40), 2048, "noise"),
+                                         (2, (64, 80), 512, "noise"),
+                                         (3, (72, 96), 1024, "noise"),
+                                         (3, (64, 96), 512, "cross_group_tie"),
+                                         (2, (64, 96), 1024, "cross_group_tie"),
+                                         (4, (416, 544), 1024, "smooth")])
+def test_chamfer_kernel_reductions_match_plain(cuda, b, hw, p, kind):
+    """The five outputs. On tie-free random depths ("noise"): ragged pixel
+    counts (1617, 63) and more than one tile (226,304 pixels) included; 1,
+    16 and 33 bins leave lanes and bins of a lane padded; 257, 512, 1,024
+    and 2,048 bins take the kernel for more than 256 bins (groups of 256
+    bins, tiles of 4,096 pixels in two sub-tiles: 5,120 and 6,912 pixels
+    cover both). "cross_group_tie": exact dyadic ties, between bins 255 and
+    256 among them, equal to the plain version bit for bit (depth sum at
+    1e-5). "smooth": mm-quantized planes with a block of invalid zeros at
+    the flagship's pixels."""
+    if kind == "cross_group_tie":
+        centers, flat = _cross_group_ties(b, hw, p)
+        got = _assert_reductions_match_plain(centers.to(cuda), flat.to(cuda), exact=True)
+        assert torch.all(got[4][:, 0] == 1 / 16)  # halfway between bins 255 and 256
+        assert ((2 * got[2]) % 2 == 1).any()  # half counts from split pixels
+        return
+    edges, depth = _chamfer_inputs(cuda, b, hw, p)
+    centers = 0.5 * (edges[:, 1:] + edges[:, :-1])
+    if kind == "smooth":
+        depth = smooth_depth(b, *hw, seed=10).to(cuda)
+    got = _assert_reductions_match_plain(centers, depth.reshape(b, -1))
+    if kind == "smooth":
+        assert (got[4] == 0).any() and (got[2] > 100).any()  # invalid block; shared bins
 
 
 @pytest.mark.cuda
@@ -422,15 +460,20 @@ def test_chamfer_kernel_exact_ties_match_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_chamfer_kernel_tie_weights_exact(cuda):
+@pytest.mark.parametrize("p", [256, 1024])
+def test_chamfer_kernel_tie_weights_exact(cuda, p):
     """One valid pixel an image, at the same distance from t bins, so that
     each of them gets exactly 1/t of its count and depth: t = 1 to 256 bins
     0 .. t-1 (ties across lanes, and inside lanes above 32), and t = 2 to 8
-    bins 0, 32, 64, ... (ties inside one lane's bins). Every output equals
-    the plain version's bit for bit."""
-    p, m = 256, 40
-    sets = [list(range(t)) for t in range(1, p + 1)] + [list(range(0, 32 * t, 32))
-                                                        for t in range(2, 9)]
+    bins 0, 32, 64, ... (ties inside one lane's bins); at 1,024 bins also
+    ties across the groups of 256 bins: bins 255 and 256, bin k of every
+    group, 0 .. 299, and all 1,024. Every output equals the plain version
+    bit for bit."""
+    m = 40
+    sets = [list(range(t)) for t in range(1, 257)] + [list(range(0, 32 * t, 32))
+                                                      for t in range(2, 9)]
+    if p > 256:
+        sets += [[255, 256], [5, 261, 517, 773], list(range(300)), list(range(p))]
     centers = torch.full((len(sets), p), 100.0) + torch.arange(p).float()
     depth = torch.zeros((len(sets), m))
     for i, bins in enumerate(sets):

@@ -39,19 +39,23 @@ its float32 2-rank step to the same GRAD_TOL.
 
 Cost: the ranks and the one-process reference run every case in three
 spawned processes of one thread each, while the test's own process compiles
-and runs JAX's 2-device step.
+and runs JAX's 2-device step (9.3 GB of resident memory together, this file
+alone); under xdist one worker of the run does this and the others read
+its numbers (`_torch_port_shared.py`). The ranks meet in a file store, so
+they bind no port.
 """
 
 import hashlib
 import os
 import shutil
-import socket
 import types
 
 import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+
+from _torch_port_shared import shared
 
 torch.set_num_threads(2)
 
@@ -133,9 +137,10 @@ def _digest(result):
     return digest.hexdigest()
 
 
-def _process(index, port, cases_file, out_dir):
-    """A spawned process: 0 and 1 join the 2-rank gloo group and run every
-    case; 2 runs the one-process steps meanwhile."""
+def _process(index, store, cases_file, out_dir):
+    """A spawned process: 0 and 1 join the 2-rank gloo group, which meets in
+    the file store `store` (no port to bind), and run every case; 2 runs the
+    one-process steps meanwhile."""
     from mde_tpu_torch import parallel
     torch.set_num_threads(1)
     cases, single = torch.load(cases_file, mmap=True)
@@ -143,18 +148,12 @@ def _process(index, port, cases_file, out_dir):
         for case in single:
             _step(case, 0, 1, out_dir)
         return
-    parallel.init_distributed(index, 2, f"tcp://127.0.0.1:{port}", "gloo", "cpu")
+    parallel.init_distributed(index, 2, f"file://{store}", "gloo", "cpu")
     try:
         for case in cases:
             _step(case, index, 2, out_dir)
     finally:
         parallel.destroy_distributed()
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _nchw(a):
@@ -169,8 +168,7 @@ def _batch(rng, n, hw):
     return image, depth
 
 
-@pytest.fixture(scope="module")
-def inputs():
+def _inputs():
     from mde_tpu.models import build_model as jax_build_model
     from mde_tpu_torch.checkpoint import state_dict_from_flax
     from test_torch_port_models import seeded_variables
@@ -193,8 +191,7 @@ def inputs():
     return out
 
 
-@pytest.fixture(scope="module")
-def runs(inputs, tmp_path_factory):
+def _runs(inputs, out_dir):
     """Every case on 2 spawned gloo ranks, and beside them in a third process
     on the whole batch, while this process runs JAX's step on a 2-device
     mesh; {case: {"two": (rank 0, rank 1), "one": result}, "jax": ...}."""
@@ -211,10 +208,10 @@ def runs(inputs, tmp_path_factory):
             image, depth = image[order], depth[order]
         if name != "noadabins":  # held against noadabins64's one-process step
             single.append(dict(case, batch={"image": image, "depth": depth}))
-    out_dir = str(tmp_path_factory.mktemp("ddp"))
     cases_file = os.path.join(out_dir, "cases.pt")
     torch.save((cases, single), cases_file)
-    context = mp.start_processes(_process, args=(_free_port(), cases_file, out_dir), nprocs=3,
+    store = os.path.join(out_dir, "store")
+    context = mp.start_processes(_process, args=(store, cases_file, out_dir), nprocs=3,
                                  join=False, start_method="spawn")
     try:
         jax_result = _jax_two_devices(inputs)
@@ -231,6 +228,14 @@ def runs(inputs, tmp_path_factory):
     out["jax"] = jax_result
     shutil.rmtree(out_dir)  # ~0.5 GB of gradients, now in memory
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(request, tmp_path_factory):
+    """`_runs`' numbers, computed by one xdist worker of the run: one spawn
+    of the ranks a run (`_torch_port_shared.py`)."""
+    return shared(request, "ddp_runs",
+                  lambda: _runs(_inputs(), str(tmp_path_factory.mktemp("ddp"))))
 
 
 CASES = ["noadabins", "noadabins64", "accum64", "adabins"]

@@ -291,8 +291,6 @@ def test_torchrun_trains_on_two_gloo_ranks(tree, tmp_path):
     best checkpoint, named by its run id, and the JSONL at the JAX driver's
     cadence; its logged metrics are those of one process validating the
     saved weights."""
-    import socket
-
     from mde_tpu_torch.data import DevicePrefetcher
     from mde_tpu_torch.train import make_eval_step, validate
 
@@ -306,12 +304,9 @@ def test_torchrun_trains_on_two_gloo_ranks(tree, tmp_path):
     argv = _argv(tree, tmp_path / "runs", "--distributed", "--bs", "2", "--validate_every", "1",
                  "--encoder_name", "efficientnet-b1-noAdaBins", "--input_height", "64",
                  "--input_width", "96")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-                           "2", "--master_addr", "127.0.0.1", "--master_port", str(port),
-                           "-m", "mde_tpu_torch.train", *argv],
+    # --standalone: torchrun's own rendezvous on a port it takes itself
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "2", "-m", "mde_tpu_torch.train", *argv],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           stdin=subprocess.DEVNULL, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]

@@ -19,7 +19,9 @@
   updates by zero, loss, silog and chamfer rtol 1e-4, and each gradient
   tensor held by its relative norm error below its group's limit and within
   ROUNDING_RATIO of the port's own float32 rounding against its float64 step.
-  The CueMLPs feed the mViT only, so they take the mViT's limit.
+  The CueMLPs feed the mViT only, so they take the mViT's limit. The step
+  and its float64 step (`cue_step`) are computed once a run: under xdist by
+  one worker, whose numbers the others read (`_torch_port_shared.py`).
 """
 
 import types
@@ -47,6 +49,7 @@ from mde_tpu_torch.kernels import bins_head
 from mde_tpu_torch.ops import metrics
 from mde_tpu_torch.train import create_train_state, make_eval_step, make_loss_fn
 from mde_tpu_torch.train import make_train_step, validate
+from _torch_port_shared import shared
 from float64_convs import depthwise_as_taps
 from test_torch_port_cues import CPU, config_args, jax_config, port_model, raw_cues
 from test_torch_port_models import nchw
@@ -263,8 +266,7 @@ def _train_args(**kw):
     return args
 
 
-@pytest.fixture(scope="module")
-def step_inputs():
+def _step_inputs():
     args, model, params, stats, raw = jax_config("B", HW, 30, n=2)
     rng = np.random.default_rng(31)
     raw["depth"] = (rng.random((2, *HW, 1)) * 9.9 + 0.05).astype(np.float32)
@@ -308,23 +310,19 @@ def _f64_cue_grads(params, stats, raw):
             for k, p in model.named_parameters()}
 
 
-@pytest.fixture(scope="module")
-def f64_cue_step(step_inputs):
-    """`_f64_cue_grads` in a thread of its own beside JAX's compile and the
-    port's float32 step of `cue_step` (torch and XLA leave the interpreter
-    lock while they compute); a future."""
+def _cue_step():
+    """JAX's and the port's float32 cue step, with `_f64_cue_grads` in a
+    thread of its own beside them (torch and XLA leave the interpreter lock
+    while they compute)."""
+    params, stats, raw = _step_inputs()
     with ThreadPoolExecutor(max_workers=1) as pool:
-        yield pool.submit(_f64_cue_grads, *step_inputs)
+        f64 = pool.submit(_f64_cue_grads, params, stats, raw)
+        out = _f32_cue_steps(params, stats, raw)
+        out["f64_grads"] = f64.result()
+    return out
 
 
-@pytest.fixture(scope="module")
-def f64_cue_grads(f64_cue_step):
-    return f64_cue_step.result()
-
-
-@pytest.fixture(scope="module")
-def cue_step(step_inputs, f64_cue_step):
-    params, stats, raw = step_inputs
+def _f32_cue_steps(params, stats, raw):
     args = _train_args()
     mp = pytest.MonkeyPatch()
     mp.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
@@ -359,7 +357,20 @@ def cue_step(step_inputs, f64_cue_step):
     return dict(want_metrics=want_metrics,
                 want_grads=state_dict_from_flax(want_grads, stats, args.encoder_name),
                 metrics={k: v.item() for k, v in metrics_.items()}, grads=seen,
-                before=before, model=port)
+                before=before, after={k: p.detach().clone() for k, p in port.named_parameters()},
+                conv3x3_shape=tuple(port.adaptive_bins_layer.conv3x3.weight.shape))
+
+
+@pytest.fixture(scope="module")
+def cue_step(request):
+    """`_cue_step`'s numbers, computed by one xdist worker of the run
+    (`_torch_port_shared.py`)."""
+    return shared(request, "eval_cue_step", _cue_step)
+
+
+@pytest.fixture(scope="module")
+def f64_cue_grads(cue_step):
+    return cue_step["f64_grads"]
 
 
 @pytest.mark.parametrize("metric", ["loss", "silog", "chamfer"])
@@ -404,9 +415,8 @@ def test_cue_step_gradients_match_jax(cue_step, f64_cue_grads, group):
 
 def test_cue_step_updates_every_parameter(cue_step):
     """The CueMLPs and the 198-channel mViT convs among them."""
-    model = cue_step["model"]
-    assert model.adaptive_bins_layer.conv3x3.weight.shape[1] == 198
-    names = [n for n, _ in model.named_parameters()]
+    assert cue_step["conv3x3_shape"][1] == 198
+    names = list(cue_step["after"])
     assert {"semantics_areas_fc.0.weight", "instance_areas_fc.2.bias"} <= set(names)
-    for name, p in model.named_parameters():
-        assert not torch.equal(p.detach(), cue_step["before"][name]), name
+    for name, p in cue_step["after"].items():
+        assert not torch.equal(p, cue_step["before"][name]), name

@@ -63,15 +63,21 @@ def test_silog_value_and_gradient_match_jax(interpolate, masked):
                                rtol=1e-5, atol=1e-9)
 
 
-def _setup(seed=0, n=2, p=16, hw=(24, 32)):
+def _setup(seed=0, n=2, p=16, hw=(24, 32), tie=None):
     """Bin edges and depths as tests/test_kernels.py makes them: depths under
-    0.4 m are zero (not valid)."""
+    0.4 m are zero (not valid). With `tie`, the edges are 1/64 m apart from
+    0.5 m instead (dyadic, so every centre and distance below is exact) and
+    each image's first depth is edge `tie`: exactly as near to the centres
+    of bins tie - 1 and tie."""
     rng = np.random.default_rng(seed)
     widths = rng.random((n, p), dtype=np.float32)
     widths /= widths.sum(1, keepdims=True)
     edges = np.asarray(bin_edges_from_widths(jnp.asarray(widths), 1e-3, 10.0))
     depth = rng.random((n, *hw, 1), dtype=np.float32) * 10
     depth[depth < 0.4] = 0.0
+    if tie is not None:
+        edges = np.tile(0.5 + np.arange(p + 1, dtype=np.float32) / 64, (n, 1))
+        depth[:, 0, 0, 0] = edges[:, tie]
     return edges, depth
 
 
@@ -83,7 +89,13 @@ def _port_value_and_grad(fn, edges, depth):
 
 
 CASES = {"dense": dict(seed=0), "ragged": dict(seed=3, hw=(7, 9), p=32),
-         "wide": dict(seed=5, n=3, hw=(33, 49), p=256)}
+         "wide": dict(seed=5, n=3, hw=(33, 49), p=256),
+         # above 256 bins, where the port's card runs chamfer_wide_kernel over
+         # groups of 256 bins; a pixel tied between bins 255 and 256 (the
+         # last of one group and the first of the next) splits between them
+         "bins512": dict(seed=7, hw=(24, 32), p=512),
+         "bins1024": dict(seed=8, hw=(16, 24), p=1024),
+         "tie_across_groups": dict(seed=9, hw=(16, 24), p=512, tie=256)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -95,7 +107,9 @@ def test_chamfer_value_and_gradient_match_jax(case, pair):
     128-pixel lane tile. Each pair shares its tie rule: the "wide" case (3 x
     1617 pixels, 256 bins) has a bin with two valid depths at the same
     distance, where autodiff through min splits the gradient and the
-    kernels give it to one depth."""
+    kernels give it to one depth. "bins512" and "bins1024" go past the 256
+    bins of one group, and "tie_across_groups" has a pixel halfway between
+    bins 255 and 256, whose count and gradient both pairs split."""
     edges, depth = _setup(**CASES[case])
     if pair == "plain_loss":
         fn = lambda e: jax_losses.bins_chamfer_loss(e, jnp.asarray(depth), chunk=96)

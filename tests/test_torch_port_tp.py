@@ -48,13 +48,15 @@ this file after it.
 Cost: one spawn of five one-thread processes (a world of 4 for 2,2; then
 two worlds of 2, one for the small 1,2 steps, one for the driver, the
 fused-head step and the checkpoints; one process for the one-process
-references) while this process traces and runs JAX's 1,2 step.
+references) while this process traces and runs JAX's 1,2 step; under xdist
+one worker of the run does this and the others read its numbers and files
+(`_torch_port_shared.py`). Each world meets in a file store of its own, so
+no rank binds a port.
 """
 
 import hashlib
 import os
 import shutil
-import socket
 import sys
 import time
 import types
@@ -63,6 +65,8 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+
+from _torch_port_shared import shared
 
 torch.set_num_threads(2)
 
@@ -215,16 +219,16 @@ def _driver(argv, work):
                os.path.join(work, f"driver_{parallel.grid().rank}.pt"))
 
 
-def _join(rank, world_size, port, mesh_shape):
+def _join(rank, world_size, store, mesh_shape):
     from mde_tpu_torch import parallel
-    parallel.init_distributed(rank, world_size, f"tcp://127.0.0.1:{port}", "gloo", "cpu",
-                              mesh_shape)
+    parallel.init_distributed(rank, world_size, f"file://{store}", "gloo", "cpu", mesh_shape)
 
 
-def _process(index, ports, cases_file, work):
+def _process(index, stores, cases_file, work):
     """Spawned process `index`: 0-3 run 2,2, then 0 and 1 the small 1,2
     steps, 2 and 3 the driver, the fused-head step and the checkpoints; 4
-    the one-process references."""
+    the one-process references. Each world meets in its own file store
+    (`stores`), so no rank binds a port."""
     from mde_tpu_torch import parallel
     torch.set_num_threads(1)
     cases, references, argv = torch.load(cases_file, mmap=True)
@@ -232,13 +236,13 @@ def _process(index, ports, cases_file, work):
         for case in references:
             _step(case, work, tp=False)
         return
-    _join(index, 4, ports[0], "2,2")
+    _join(index, 4, stores[0], "2,2")
     try:
         _step(cases["mesh22"], work)
     finally:
         parallel.destroy_distributed()
     pair = index // 2
-    _join(index % 2, 2, ports[1 + pair], "1,2")
+    _join(index % 2, 2, stores[1 + pair], "1,2")
     try:
         if pair == 0:
             for name in ("jax", "drop64", "accum64", "all64", "remat64"):
@@ -249,12 +253,6 @@ def _process(index, ports, cases_file, work):
             _checkpoints(work)
     finally:
         parallel.destroy_distributed()
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 # --- this process ------------------------------------------------------------------
@@ -463,8 +461,7 @@ def _flax_trees(sd):
     return params, stats
 
 
-@pytest.fixture(scope="module")
-def jax_variables():
+def _jax_variables():
     """The step cases' weights: a seeded port B1 AdaBins of 16 bins whose
     conv_out reads 5 queries, and JAX's (params, batch_stats) of it, numpy;
     the JAX trees convert back to the same state_dict."""
@@ -480,13 +477,17 @@ def jax_variables():
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory, jax_variables):
+def jax_variables():
+    return _jax_variables()
+
+
+def _runs(work):
     """Every case on its spawned ranks and references, and JAX's step here,
     reduced to the numbers the tests read; each result file is read and
-    deleted as soon as it is written."""
-    work = tmp_path_factory.mktemp("tp")
+    deleted as soon as it is written, the checkpoint files and the driver's
+    run once they are compared and validated, and `work` with them."""
     rng = np.random.default_rng(31)
-    small, params, stats = jax_variables
+    small, params, stats = _jax_variables()
     with torch.device("meta"):
         big = _model(_args(n_bins=128), 128)
     big = _seeded(big, 33)
@@ -508,8 +509,8 @@ def runs(tmp_path_factory, jax_variables):
     _one_process_checkpoint(work)
     cases_file = str(work / "cases.pt")
     torch.save((cases, references, argv), cases_file)
-    procs = mp.start_processes(_process, args=([_free_port() for _ in range(3)], cases_file,
-                                               str(work)),
+    stores = [str(work / f"store_{name}") for name in ("22", "12_steps", "12_driver")]
+    procs = mp.start_processes(_process, args=(stores, cases_file, str(work)),
                                nprocs=5, join=False, start_method="spawn")
     deadline = time.perf_counter() + WAIT_S
     out = {}
@@ -550,12 +551,57 @@ def runs(tmp_path_factory, jax_variables):
             if p.is_alive():
                 p.terminate()
     out["ckpt"] = [torch.load(work / f"ckpt_{r}.pt") for r in range(2)]
-    out["ckpt_files"] = (torch.load(work / "one_process.pt", weights_only=True),
-                         torch.load(work / "tensor_parallel.pt", weights_only=True))
+    out["ckpt_files"] = _differences(torch.load(work / "one_process.pt", weights_only=True),
+                                     torch.load(work / "tensor_parallel.pt", weights_only=True))
     out["driver"] = [torch.load(work / f"driver_{r}.pt") for r in range(2)]
-    out["driver_argv"] = argv
-    yield out
+    out["driver_validation"] = _validate_driver_run(out["driver"][0]["exp_dir"], argv)
     shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _differences(one, tp):
+    """What the one-process checkpoint file and the 1,2 grid's hold: epoch
+    and step, the model's keys, the tensors that differ, the optimizer's
+    param groups and the AdamW slots that differ."""
+    return dict(
+        counts=((one["epoch"], one["step"]), (tp["epoch"], tp["step"])),
+        model_keys=(sorted(one["model"]), sorted(tp["model"])),
+        model_unequal=[k for k, v in one["model"].items()
+                       if k not in tp["model"] or not torch.equal(tp["model"][k], v)],
+        param_groups=(one["optimizer"]["param_groups"], tp["optimizer"]["param_groups"]),
+        slots_unequal=[(i, k) for i, slots in one["optimizer"]["state"].items()
+                       for k, v in slots.items()
+                       if not torch.equal(tp["optimizer"]["state"][i][k], v)])
+
+
+def _validate_driver_run(exp_dir, argv):
+    """The driver run's checkpoints, its logged metrics, and one process's
+    validation of its latest checkpoint on the same split."""
+    import json
+
+    from mde_tpu_torch.checkpoint import load_checkpoint
+    from mde_tpu_torch.config import TrainArgParser, parse_cli
+    from mde_tpu_torch.data import DepthDataLoader, DevicePrefetcher
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.train import create_train_state, make_eval_step, validate
+
+    latest = [f for f in os.listdir(exp_dir) if f.endswith("_latest.pt")]
+    args = parse_cli(TrainArgParser(), [a for a in argv if a not in ("--distributed",)])
+    state = create_train_state(build_model(args), args, steps_per_epoch=3)
+    state, _ = load_checkpoint(os.path.join(exp_dir, latest[0]), state)
+    want, _ = validate(args, make_eval_step(args), state.model,
+                       DevicePrefetcher(DepthDataLoader(args, "online_eval"), "cpu"))
+    with open(os.path.join(exp_dir, "events.jsonl")) as f:
+        logged = {e["tag"][len("Metrics/"):]: e["value"] for e in map(json.loads, f)
+                  if e["tag"].startswith("Metrics/")}
+    return dict(latest=latest, step=state.step, want=want, logged=logged)
+
+
+@pytest.fixture(scope="module")
+def runs(request, tmp_path_factory):
+    """`_runs`'s numbers, computed by one xdist worker of the run
+    (`_torch_port_shared.py`)."""
+    return shared(request, "tp_runs", lambda: _runs(tmp_path_factory.mktemp("tp")))
 
 
 # --- the tests ---------------------------------------------------------------------
@@ -747,45 +793,31 @@ def test_checkpoints_cross_between_one_process_and_the_grid(runs):
     assert all(r["equal"] for r in ranks)
     assert all((r["epoch"], r["step"]) == (3, 1) for r in ranks)
     assert any(k.endswith("conv_out.0.weight") for k in ranks[0]["split"])
-    one, tp = runs["ckpt_files"]
-    assert (tp["epoch"], tp["step"]) == (one["epoch"], one["step"])
-    assert tp["model"].keys() == one["model"].keys()
-    for k, v in one["model"].items():
-        assert torch.equal(tp["model"][k], v), k
-    assert tp["optimizer"]["param_groups"] == one["optimizer"]["param_groups"]
-    for i, slots in one["optimizer"]["state"].items():
-        for k, v in slots.items():
-            assert torch.equal(tp["optimizer"]["state"][i][k], v), (i, k)
+    files = runs["ckpt_files"]  # the two files, compared where they were written
+    one_counts, tp_counts = files["counts"]
+    assert tp_counts == one_counts
+    one_keys, tp_keys = files["model_keys"]
+    assert tp_keys == one_keys
+    assert not files["model_unequal"], files["model_unequal"]
+    one_groups, tp_groups = files["param_groups"]
+    assert tp_groups == one_groups
+    assert not files["slots_unequal"], files["slots_unequal"]
 
 
 def test_driver_trains_on_a_1_2_grid(runs):
     """main_train --distributed --mesh_shape 1,2: 2 steps and a validation
     on both ranks, the split layers held as slices; rank 0's logged metrics
     those of one process validating the gathered checkpoint, rtol 1e-5."""
-    import json
-
-    from mde_tpu_torch.checkpoint import load_checkpoint
-    from mde_tpu_torch.config import TrainArgParser, parse_cli
-    from mde_tpu_torch.data import DepthDataLoader, DevicePrefetcher
-    from mde_tpu_torch.models import build_model
     from mde_tpu_torch.ops import METRIC_NAMES
-    from mde_tpu_torch.train import create_train_state, make_eval_step, validate
 
     ranks = runs["driver"]
     assert [r["step"] for r in ranks] == [2, 2] and ranks[0]["exp_dir"] == ranks[1]["exp_dir"]
     assert "encoder.original_model.conv_head.weight" in ranks[0]["split"]
-    exp_dir = ranks[0]["exp_dir"]
-    (latest,) = [f for f in os.listdir(exp_dir) if f.endswith("_latest.pt")]
-    args = parse_cli(TrainArgParser(), [a for a in runs["driver_argv"]
-                                        if a not in ("--distributed",)])
-    state = create_train_state(build_model(args), args, steps_per_epoch=3)
-    state, _ = load_checkpoint(os.path.join(exp_dir, latest), state)
-    assert state.step == 2
-    want, _ = validate(args, make_eval_step(args), state.model,
-                       DevicePrefetcher(DepthDataLoader(args, "online_eval"), "cpu"))
-    with open(os.path.join(exp_dir, "events.jsonl")) as f:
-        logged = {e["tag"][len("Metrics/"):]: e["value"] for e in map(json.loads, f)
-                  if e["tag"].startswith("Metrics/")}
+    # one process's validation of the latest checkpoint, run where it was written
+    checked = runs["driver_validation"]
+    (latest,) = checked["latest"]
+    assert checked["step"] == 2
+    want, logged = checked["want"], checked["logged"]
     assert sorted(logged) == sorted(METRIC_NAMES)
     for k in METRIC_NAMES:
         np.testing.assert_allclose(logged[k], want[k], rtol=1e-5, err_msg=k)

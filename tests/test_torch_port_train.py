@@ -63,6 +63,10 @@ float32 and rounds its output to bf16, autocast runs it in bf16. Run with
 BatchNorm in float32, the port's decoder and mViT errors rise by ~40 %
 (decoder 0.026 to 0.037, transformer 0.017 to 0.024) and the regressor's
 falls (0.0050 to 0.0037), so the port keeps autocast's BatchNorm.
+
+Cost: the float32 steps with their float64 step (`one_step`) and the bf16
+steps with theirs (`bf16_steps`) are computed once a run: under xdist by
+one worker each, whose numbers the others read (`_torch_port_shared.py`).
 """
 
 import types
@@ -89,6 +93,7 @@ from mde_tpu_torch.models.norm import BatchNorm2d
 from mde_tpu_torch.train import (OneCycleAdamW, create_train_state, make_loss_fn,
                                  make_train_step, onecycle_lr_schedule,
                                  onecycle_momentum_schedule)
+from _torch_port_shared import shared
 from float64_convs import depthwise_as_taps
 from test_torch_port_models import flax_variables
 
@@ -261,8 +266,7 @@ def _port_model(params, stats, fused_head):
     return model
 
 
-@pytest.fixture(scope="module")
-def step_inputs():
+def _step_inputs():
     params, stats = flax_variables(n_bins=128, seed=6)
     rng = np.random.default_rng(7)
     image = rng.standard_normal((2, 320, 416, 3)).astype(np.float32)
@@ -294,28 +298,20 @@ def _f64_step(params, stats, image, depth):
                          for k, p in model.named_parameters()}
 
 
-@pytest.fixture(scope="module")
-def f64_steps(step_inputs):
-    """The port's two float64 steps, on the step's weights and on the
-    weights with their corners lifted (`bf16_steps`), in a thread of their
-    own beside the JAX compiles and the float32 and bf16 steps that the
-    fixtures below run meanwhile (torch and XLA leave the interpreter lock
-    while they compute): futures of (loss, gradients)."""
-    params, stats, image, depth = step_inputs
+def _one_step():
+    """The float32 step of JAX and of the port on the step's weights and
+    batch, with the port's float64 step (`f64_grads`) in a thread of its own
+    beside them (torch and XLA leave the interpreter lock while they
+    compute)."""
+    params, stats, image, depth = _step_inputs()
     with ThreadPoolExecutor(max_workers=1) as pool:
-        yield (pool.submit(_f64_step, params, stats, image, depth),
-               pool.submit(_f64_step, _lift_corners(params), stats, image, depth))
+        f64 = pool.submit(_f64_step, params, stats, image, depth)
+        out = _f32_steps(params, stats, image, depth)
+        out["f64_grads"] = f64.result()[1]
+    return out
 
 
-@pytest.fixture(scope="module")
-def f64_grads(f64_steps):
-    """The port's float64 gradients on the step's weights and batch."""
-    return f64_steps[0].result()[1]
-
-
-@pytest.fixture(scope="module")
-def one_step(step_inputs, f64_steps):
-    params, stats, image, depth = step_inputs
+def _f32_steps(params, stats, image, depth):
     args = _args()
 
     mp = pytest.MonkeyPatch()
@@ -360,7 +356,21 @@ def one_step(step_inputs, f64_steps):
                 want_stats=state_dict_from_flax(params, want_stats),
                 metrics={k: v.item() for k, v in metrics.items()}, grads=seen,
                 before=before, after={k: v.clone() for k, v in port.state_dict().items()},
-                state=train_state, calls=calls)
+                step=train_state.step,
+                parameters=[k for k, _ in train_state.model.named_parameters()], calls=calls)
+
+
+@pytest.fixture(scope="module")
+def one_step(request):
+    """`_one_step`'s numbers, computed by one xdist worker of the run
+    (`_torch_port_shared.py`)."""
+    return shared(request, "train_one_step", _one_step)
+
+
+@pytest.fixture(scope="module")
+def f64_grads(one_step):
+    """The port's float64 gradients on the step's weights and batch."""
+    return one_step["f64_grads"]
 
 
 @pytest.mark.parametrize("metric", ["loss", "silog", "chamfer"])
@@ -437,15 +447,21 @@ def test_step_takes_the_fused_head_and_updates_every_parameter(one_step):
     """One fused-head call per step, no kernel launch on the CPU; the
     optimizer moved every parameter and counted the step."""
     assert one_step["calls"] == [torch.Size([2, 128, 160, 208])]
-    assert one_step["state"].step == 1
-    for name, p in one_step["state"].model.named_parameters():
-        assert not torch.equal(p.detach(), one_step["before"][name]), name
+    assert one_step["step"] == 1
+    for name in one_step["parameters"]:
+        assert not torch.equal(one_step["after"][name], one_step["before"][name]), name
 
 
 def test_loss_fn_gradients_reach_the_head(one_step):
     """make_loss_fn exposes the loss on its own: its gradients for the head
     after the step are finite and non-zero."""
-    model = one_step["state"].model
+    model = UnetAdaptiveBins(n_bins=128, min_val=1e-3, max_val=10.0,
+                             encoder_name="efficientnet-b1", fused_head=True)
+    model.load_state_dict(one_step["after"], strict=True)
+    for m in model.modules():
+        if hasattr(m, "dropout"):
+            m.dropout = 0.0
+    model.train()
     loss, l_dense, l_chamfer = make_loss_fn(_args())(model, {
         "image": torch.zeros(1, 3, 320, 416), "depth": torch.full((1, 1, 320, 416), 2.0)})
     model.zero_grad()
@@ -474,42 +490,52 @@ def _lift_corners(params):
     return params
 
 
-@pytest.fixture(scope="module")
-def bf16_steps(step_inputs, f64_steps):
+def _bf16_steps():
     """The port's step under bf16 autocast and JAX's `build_model(dtype=
     bfloat16)` step, on the step's batch and the weights with their corners
-    lifted (`_lift_corners`), with the port's float32 loss and float64 loss
-    and gradients there."""
-    params, stats, image, depth = step_inputs
+    lifted (`_lift_corners`), with the port's float32 loss and its float64
+    loss and gradients there (the float64 step in a thread beside the
+    rest)."""
+    params, stats, image, depth = _step_inputs()
     params = _lift_corners(params)
-    args = _args(compute_dtype="bfloat16")
-    mp = pytest.MonkeyPatch()
-    mp.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
-    try:
-        model = jax_build_model(args, dtype=jnp.bfloat16)
-        state = JaxTrainState.create(apply_fn=model.apply, params=params, tx=_grad_keeper(),
-                                     batch_stats=stats)
-        step = jax_make_train_step(model, args, None, None,
-                                   make_mesh("1", devices=jax.devices()[:1]))
-        new_state, metrics = step(state, {"image": jnp.asarray(image),
-                                          "depth": jnp.asarray(depth)}, jax.random.PRNGKey(0))
-        jax_loss = float(metrics["loss"])
-        jax_grads = state_dict_from_flax(
-            jax.tree_util.tree_map(np.asarray, new_state.opt_state["grads"]), stats)
-    finally:
-        mp.undo()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        f64 = pool.submit(_f64_step, params, stats, image, depth)
+        args = _args(compute_dtype="bfloat16")
+        mp = pytest.MonkeyPatch()
+        mp.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
+        try:
+            model = jax_build_model(args, dtype=jnp.bfloat16)
+            state = JaxTrainState.create(apply_fn=model.apply, params=params,
+                                         tx=_grad_keeper(), batch_stats=stats)
+            step = jax_make_train_step(model, args, None, None,
+                                       make_mesh("1", devices=jax.devices()[:1]))
+            new_state, metrics = step(state, {"image": jnp.asarray(image),
+                                              "depth": jnp.asarray(depth)},
+                                      jax.random.PRNGKey(0))
+            jax_loss = float(metrics["loss"])
+            jax_grads = state_dict_from_flax(
+                jax.tree_util.tree_map(np.asarray, new_state.opt_state["grads"]), stats)
+        finally:
+            mp.undo()
 
-    batch = {"image": _nchw(image), "depth": _nchw(depth)}
-    port = _port_model(params, stats, fused_head=True).train()
-    loss, _, _ = make_loss_fn(args)(port, batch)
-    loss.backward()
-    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
-             for k, p in port.named_parameters()}
-    with torch.no_grad():
-        f32_loss, _, _ = make_loss_fn(_args())(_port_model(params, stats, True).train(), batch)
-    f64_loss, f64 = f64_steps[1].result()
+        batch = {"image": _nchw(image), "depth": _nchw(depth)}
+        port = _port_model(params, stats, fused_head=True).train()
+        loss, _, _ = make_loss_fn(args)(port, batch)
+        loss.backward()
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                 for k, p in port.named_parameters()}
+        with torch.no_grad():
+            f32_loss, _, _ = make_loss_fn(_args())(_port_model(params, stats, True).train(),
+                                                   batch)
+        f64_loss, f64_grads = f64.result()
     return dict(loss=loss.item(), grads=grads, jax_loss=jax_loss, jax_grads=jax_grads,
-                f32_loss=f32_loss.item(), f64_loss=f64_loss, f64_grads=f64)
+                f32_loss=f32_loss.item(), f64_loss=f64_loss, f64_grads=f64_grads)
+
+
+@pytest.fixture(scope="module")
+def bf16_steps(request):
+    """`_bf16_steps`'s numbers, computed by one xdist worker of the run."""
+    return shared(request, "train_bf16_steps", _bf16_steps)
 
 
 BF16_RATIO = 2.0  # the port's bf16 error over JAX's, against the float64 step
